@@ -1,0 +1,406 @@
+"""MossFormer2 speech separation and its windowed engine, in PyTorch.
+
+Counterpart of targetdiarization_tpu/models/separation.py. The layout is
+time-major (B, T, C) throughout, as in the JAX package. The two Pallas
+kernels of the JAX model become the port's CUDA kernels: every FFConvM
+runs `ops.kernels.ffconvm` (five per FLASH + FSMN layer pair) and every
+FlashBlock runs `ops.kernels.flash_gated` once. The 24 scanned layer
+pairs of the JAX model are a Python loop over an `nn.ModuleList`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.dwconv import dw_conv1d
+from ..ops.kernels.ffconvm import TAPS, ffconvm, scale_norm
+from ..ops.kernels.flash import flash_gated
+from ..ops.loudness import integrated_loudness
+from ..ops.resample import resample_poly_np
+from ..runtime.buckets import BucketLadder
+from ..runtime.precision import resolve_compute_dtype
+
+
+# ---------------- small pieces ----------------
+
+
+class ScaleNorm(nn.Module):
+    """x / max(||x|| d^-1/2, eps) * g."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        return scale_norm(x, self.g, self.eps)
+
+
+def masked_global_layer_norm(x, mask, weight, bias, eps: float = 1e-8):
+    """Normalise over (T, C) jointly, counting only mask == 1 frames.
+    Statistics in float32; the result in x's type."""
+    xf = x.float()
+    m = mask.float()[..., None]
+    denom = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * x.shape[-1], 1.0)
+    mean = (xf * m).sum(dim=(1, 2), keepdim=True) / denom
+    var = ((xf - mean).square() * m).sum(dim=(1, 2), keepdim=True) / denom
+    out = (weight.float() * (xf - mean) / torch.sqrt(var + eps) + bias.float()) * m
+    return out.to(x.dtype)
+
+
+class GlobalLayerNorm(nn.Module):
+    """gLN over time and channels with affine parameters."""
+
+    def __init__(self, dim: int, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, mask):
+        return masked_global_layer_norm(x, mask, self.weight, self.bias, self.eps)
+
+
+class FFConvM(nn.Module):
+    """norm -> Linear -> SiLU -> h + depthwise 17-tap conv of h, in one
+    kernel (`ops.kernels.ffconvm`). `norm` is "scalenorm" (FLASH blocks)
+    or "layernorm" (the gated FSMN's to_u / to_v). The depthwise kernel
+    keeps the JAX layout (17, 1, dim_out)."""
+
+    def __init__(self, dim_in: int, dim_out: int, norm: str = "scalenorm"):
+        super().__init__()
+        self.norm_kind = norm
+        self.norm = ScaleNorm() if norm == "scalenorm" else nn.LayerNorm(dim_in, eps=1e-5)
+        self.proj = nn.Linear(dim_in, dim_out)
+        self.dwk = nn.Parameter(torch.zeros(TAPS, 1, dim_out))
+
+    def forward(self, x):
+        if self.norm_kind == "scalenorm":
+            na, nb = self.norm.g, self.norm.g.new_zeros(1)
+        else:
+            na, nb = self.norm.weight, self.norm.bias
+        return ffconvm(x, na, nb, self.proj.weight, self.proj.bias, self.dwk, self.norm_kind)
+
+
+def rope_rotate(x, rot_dims: int = 32):
+    """Rotary embedding on the first `rot_dims` dims (GPT-J partial RoPE)."""
+    t = x.shape[-2]
+    d = min(rot_dims, x.shape[-1])
+    d -= d % 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(0, d, 2, device=x.device, dtype=torch.float32) / d))
+    angles = torch.arange(t, device=x.device, dtype=torch.float32)[:, None] * freqs[None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x_rot, x_pass = x[..., :d].float(), x[..., d:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([rot.reshape(x_rot.shape).to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------- FLASH shared-A gated attention ----------------
+
+
+class FlashBlock(nn.Module):
+    """Gated single-head attention with joint local-quadratic and
+    global-linear terms sharing one A matrix (FLASH ShareA)."""
+
+    def __init__(self, dim: int, group_size: int = 256, qk_dim: int = 128,
+                 expansion_factor: float = 4.0):
+        super().__init__()
+        hidden = int(dim * expansion_factor)
+        self.group_size = group_size
+        self.to_hidden = FFConvM(dim, hidden)
+        self.to_qk = FFConvM(dim, qk_dim)
+        # stored as in the JAX checkpoints: gamma is applied as os_gamma + 1
+        self.os_gamma = nn.Parameter(torch.zeros(4, qk_dim))
+        self.os_beta = nn.Parameter(torch.zeros(4, qk_dim))
+        self.to_out = FFConvM(hidden // 2, dim)
+
+    def forward(self, x, mask):
+        b, t, d = x.shape
+        half = d // 2
+        # token shift: first half of the channels delayed by one frame
+        x_shift = F.pad(x[..., :half], (0, 0, 1, 0))[:, :-1]
+        shifted = torch.cat([x_shift, x[..., half:]], dim=-1)
+
+        v, u = self.to_hidden(shifted).chunk(2, dim=-1)
+        qk = self.to_qk(shifted)
+        qk4 = qk[..., None, :] * (self.os_gamma + 1.0) + self.os_beta  # (B, T, 4, d)
+        quad_q, lin_q, quad_k, lin_k = map(rope_rotate, qk4.unbind(dim=-2))
+        lin_k = lin_k * mask[..., None]
+
+        g = self.group_size
+        n_groups = t // g  # t is padded to a multiple of g by the caller
+        e = v.shape[-1]
+
+        def group(z):
+            return z.reshape(b, n_groups, g, z.shape[-1]).contiguous()
+
+        qq, qk_, lq, lk = group(quad_q), group(quad_k), group(lin_q), group(lin_k)
+        vg, ug = group(v), group(u)
+        mg = mask.reshape(b, n_groups, 1, g).contiguous()
+        # global linear-attention summaries over the valid frames (lin_k is
+        # masked), shared by all groups; small, so plain matmuls
+        n_valid = torch.clamp_min(mask.sum(dim=-1), 1.0)[:, None, None]
+        lin_kv = (torch.einsum("bgnd,bgne->bde", lk, vg) / n_valid).contiguous()
+        lin_ku = (torch.einsum("bgnd,bgne->bde", lk, ug) / n_valid).contiguous()
+        out = flash_gated(qq, qk_, vg, ug, mg, lq, lin_kv, lin_ku).reshape(b, t, e)
+        out = self.to_out(out)
+        return x + out * mask[..., None]
+
+
+# ---------------- gated FSMN ----------------
+
+
+class DilatedDenseFsmnNet(nn.Module):
+    """Dense-dilated depthwise memory stack (depth 2): conv i sees the
+    concatenation of all earlier outputs, then a masked instance norm over
+    time and a per-channel PReLU."""
+
+    def __init__(self, channels: int, lorder: int = 20, depth: int = 2):
+        super().__init__()
+        k = lorder * 2 - 1
+        self.conv_kernels = nn.ParameterList(
+            [nn.Parameter(torch.zeros(k, i + 1, channels)) for i in range(depth)])
+        self.in_w = nn.ParameterList([nn.Parameter(torch.ones(channels)) for _ in range(depth)])
+        self.in_b = nn.ParameterList([nn.Parameter(torch.zeros(channels)) for _ in range(depth)])
+        self.prelu = nn.ParameterList(
+            [nn.Parameter(torch.full((channels,), 0.25)) for _ in range(depth)])
+
+    def forward(self, x, mask):
+        parts = [x]
+        out = x
+        m = mask.float()[..., None]
+        denom = torch.clamp_min(m.sum(dim=1, keepdim=True), 1.0)
+        for i, kernel in enumerate(self.conv_kernels):
+            inp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            y = dw_conv1d(inp, kernel, dilation=2 ** i).float()
+            mean = (y * m).sum(dim=1, keepdim=True) / denom
+            var = ((y - mean).square() * m).sum(dim=1, keepdim=True) / denom
+            y = (y - mean) / torch.sqrt(var + 1e-5) * self.in_w[i].float() + self.in_b[i].float()
+            y = torch.where(y >= 0, y, self.prelu[i].float() * y)
+            out = y.to(x.dtype)
+            parts = [out] + parts
+        return out
+
+
+class DilatedFsmn(nn.Module):
+    """Linear -> ReLU -> project -> dense-dilated memory -> residual."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, hidden)
+        self.project = nn.Linear(hidden, dim, bias=False)
+        self.ddn = DilatedDenseFsmnNet(dim)
+
+    def forward(self, x, mask):
+        p = self.project(torch.relu(self.linear(x)))
+        return x + self.ddn(p, mask)
+
+
+class GatedFsmnBlock(nn.Module):
+    """conv1x1 -> PReLU -> LayerNorm -> gated FSMN (v * fsmn(u) + x) ->
+    LayerNorm -> conv1x1 -> residual."""
+
+    def __init__(self, dim: int, inner: int = 256):
+        super().__init__()
+        self.conv1 = nn.Linear(dim, inner)
+        self.prelu = nn.Parameter(torch.full((1,), 0.25))
+        self.norm1 = nn.LayerNorm(inner, eps=1e-5)
+        self.to_u = FFConvM(inner, inner, norm="layernorm")
+        self.to_v = FFConvM(inner, inner, norm="layernorm")
+        self.fsmn = DilatedFsmn(inner, inner)
+        self.norm2 = nn.LayerNorm(inner, eps=1e-5)
+        self.conv2 = nn.Linear(inner, dim)
+
+    def forward(self, x, mask):
+        h = self.conv1(x)
+        h = torch.where(h >= 0, h, self.prelu * h)
+        h = self.norm1(h)
+        u = self.fsmn(self.to_u(h), mask)
+        h = self.to_v(h) * u + h
+        h = self.conv2(self.norm2(h))
+        return (x + h) * mask[..., None]
+
+
+# ---------------- mask net + top model ----------------
+
+
+class MossLayer(nn.Module):
+    """One FlashBlock -> GatedFsmnBlock pair."""
+
+    def __init__(self, dim: int, group_size: int, qk_dim: int, fsmn_inner: int):
+        super().__init__()
+        self.flash = FlashBlock(dim, group_size=group_size, qk_dim=qk_dim)
+        self.fsmn = GatedFsmnBlock(dim, inner=fsmn_inner)
+
+    def forward(self, h, mask):
+        return self.fsmn(self.flash(h, mask), mask)
+
+
+class MaskNet(nn.Module):
+    def __init__(self, enc_channels: int, dim: int, num_blocks: int = 24, num_spks: int = 2,
+                 group_size: int = 256, qk_dim: int = 128, fsmn_inner: int = 256):
+        super().__init__()
+        self.dim = dim
+        self.num_spks = num_spks
+        self.in_norm = GlobalLayerNorm(enc_channels)
+        self.bottleneck = nn.Linear(enc_channels, dim, bias=False)
+        self.pos_scale = nn.Parameter(torch.ones(1))
+        self.layers = nn.ModuleList(
+            [MossLayer(dim, group_size, qk_dim, fsmn_inner) for _ in range(num_blocks)])
+        self.out_ln = nn.LayerNorm(dim, eps=1e-6)
+        self.intra_norm = GlobalLayerNorm(dim)
+        self.prelu = nn.Parameter(torch.full((1,), 0.25))
+        self.spk_expand = nn.Linear(dim, dim * num_spks)
+        self.out_tanh = nn.Linear(dim, dim)
+        self.out_sig = nn.Linear(dim, dim)
+        self.mask_proj = nn.Linear(dim, enc_channels, bias=False)
+
+    def forward(self, x, mask):
+        # x: (B, T, N) encoder output -> masks (B, T, spk, N)
+        b, t, _ = x.shape
+        h = self.bottleneck(self.in_norm(x, mask))
+        # scaled sinusoidal global position encoding
+        inv_freq = 1.0 / (10000.0 ** (
+            torch.arange(0, self.dim, 2, device=x.device, dtype=torch.float32) / self.dim))
+        ang = torch.arange(t, device=x.device, dtype=torch.float32)[:, None] * inv_freq[None, :]
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1) * self.pos_scale.float()
+        h = h + pe.to(h.dtype)
+        h_in = h
+        for layer in self.layers:
+            h = layer(h, mask)
+        h = self.intra_norm(self.out_ln(h), mask) + h_in
+        h = torch.where(h >= 0, h, self.prelu * h)
+        h = self.spk_expand(h).reshape(b, t, self.num_spks, self.dim)
+        h = torch.tanh(self.out_tanh(h)) * torch.sigmoid(self.out_sig(h))
+        return torch.relu(self.mask_proj(h)) * mask[..., None, None]
+
+
+class MossFormer2(nn.Module):
+    """2-speaker time-domain masking separator at 16 kHz."""
+
+    def __init__(self, dim: int = 512, enc_channels: int = 512, num_blocks: int = 24,
+                 kernel_size: int = 16, num_spks: int = 2, group_size: int = 256,
+                 qk_dim: int = 128, fsmn_inner: int = 256, sample_rate: int = 16000):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.num_spks = num_spks
+        self.group_size = group_size
+        self.sample_rate = sample_rate
+        stride = kernel_size // 2
+        self.encoder = nn.Conv1d(1, enc_channels, kernel_size, stride=stride, bias=False)
+        self.mask_net = MaskNet(enc_channels, dim, num_blocks, num_spks, group_size, qk_dim,
+                                fsmn_inner)
+        self.decoder = nn.ConvTranspose1d(enc_channels, 1, kernel_size, stride=stride,
+                                          bias=False)
+
+    def forward(self, wav, lengths=None):
+        """wav (B, T) in [-1, 1], lengths (B,) valid samples -> (B, spk, T)."""
+        b, t_in = wav.shape
+        if lengths is None:
+            lengths = torch.full((b,), t_in, device=wav.device, dtype=torch.long)
+        stride = self.kernel_size // 2
+        x = torch.relu(self.encoder(wav[:, None, :])).transpose(1, 2)  # (B, T_enc, N)
+        t_enc = x.shape[1]
+        pad = (-t_enc) % self.group_size
+        x = F.pad(x, (0, 0, 0, pad))
+        enc_lengths = torch.clamp((lengths - self.kernel_size) // stride + 1, 1, t_enc)
+        mask = (torch.arange(t_enc + pad, device=wav.device)[None, :]
+                < enc_lengths[:, None]).to(x.dtype)
+        masks = self.mask_net(x, mask)
+        sep = (x[:, :, None, :] * masks)[:, :t_enc]  # (B, T_enc, spk, N)
+        est = torch.stack([self.decoder(sep[:, :, s, :].transpose(1, 2))[:, 0]
+                           for s in range(self.num_spks)], dim=1)
+        t_out = est.shape[-1]
+        if t_out >= t_in:
+            return est[..., :t_in]
+        return F.pad(est, (0, t_in - t_out))
+
+
+# ---------------- engine ----------------
+
+
+class SeparationEngine:
+    """Windowed 2-speaker separation with loudness-ordered outputs.
+
+    16 kHz processing in non-overlapping windows (10 s = 160 k samples);
+    a clip that fits one window is padded only to the next rung of the
+    32k/64k/96k/160k ladder. All windows of a call go through the model in
+    one synchronous batched forward. Outputs are loudest first."""
+
+    WINDOW = 160_000
+    LADDER = BucketLadder((32_000, 64_000, 96_000, WINDOW))
+
+    def __init__(self, model: MossFormer2, device: str | torch.device = "cuda",
+                 compute_dtype: str | None = None):
+        self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
+        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        self.sample_rate = model.sample_rate
+        self.num_spks = model.num_spks
+
+    @classmethod
+    def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
+                        compute_dtype: str | None = None) -> "SeparationEngine":
+        from ..runtime.registry import from_pretrained
+
+        return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype)
+
+    def _dispatch(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """(rows, bucket) float32 audio -> (rows, spk, bucket) float32."""
+        with torch.inference_mode():
+            wav = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(
+                self.device).to(self.compute_dtype)
+            lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
+            return self.model(wav, lens).float().cpu().numpy()
+
+    def _order_and_fit(self, streams: np.ndarray, sr: int, t_orig: int) -> np.ndarray:
+        """Loudest stream first, back to the input rate and length."""
+        louds = [integrated_loudness(s, self.sample_rate) for s in streams]
+        streams = streams[np.argsort(louds)[::-1]]
+        if sr != self.sample_rate:
+            streams = np.stack([resample_poly_np(s, sr, self.sample_rate) for s in streams])
+        if streams.shape[-1] >= t_orig:
+            return streams[..., :t_orig]
+        return np.pad(streams, ((0, 0), (0, t_orig - streams.shape[-1])))
+
+    def separate(self, audio: np.ndarray, sr: int = 16000) -> np.ndarray:
+        """(spk, T) separated sources at the input rate, loudest first."""
+        audio = np.asarray(audio, np.float32)
+        t_orig = len(audio)
+        work = resample_poly_np(audio, self.sample_rate, sr) if sr != self.sample_rate else audio
+        n = len(work)
+        if n == 0:
+            return np.zeros((self.num_spks, t_orig), np.float32)
+        win = self.WINDOW if n > self.WINDOW else self.LADDER.bucket(n)
+        n_win = -(-n // win)
+        batch = np.pad(work, (0, n_win * win - n)).reshape(n_win, win)
+        lengths = np.full(n_win, win, np.int64)
+        lengths[-1] = n - (n_win - 1) * win
+        est = self._dispatch(batch, lengths)
+        # non-overlapping windows stitched back in order
+        streams = est.transpose(1, 0, 2).reshape(self.num_spks, -1)[:, :n]
+        return self._order_and_fit(streams, sr, t_orig)
+
+    def separate_batch(self, clips: list, sr: int = 16000) -> list:
+        """Separate several clips in one forward, each padded to the ladder
+        rung of the longest; clips longer than a window go through
+        `separate`. Returns a list of (spk, len(clip)) arrays."""
+        clips = [np.asarray(c, np.float32) for c in clips]
+        work = [resample_poly_np(c, self.sample_rate, sr) for c in clips] \
+            if sr != self.sample_rate else clips
+        small = [i for i, c in enumerate(work) if 0 < len(c) <= self.WINDOW]
+        out: list = [None] * len(clips)
+        if small:
+            bucket = self.LADDER.bucket(max(len(work[i]) for i in small))
+            batch = np.stack([np.pad(work[i], (0, bucket - len(work[i]))) for i in small])
+            est = self._dispatch(batch, np.array([len(work[i]) for i in small]))
+            for j, i in enumerate(small):
+                out[i] = self._order_and_fit(est[j, :, :len(work[i])], sr, len(clips[i]))
+        for i, c in enumerate(clips):
+            if out[i] is None:
+                out[i] = self.separate(c, sr=sr)
+        return out

@@ -1,0 +1,32 @@
+"""Checkpoint-driven model construction.
+
+Counterpart of targetdiarization_tpu/runtime/registry.py::from_pretrained:
+the checkpoint's own `model_name` picks the class. Only MossFormer2 is
+ported so far; any other name raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .convert import CONVERTERS
+from .params import load_checkpoint
+
+
+def get_model_cls(name: str):
+    from ..models.separation import MossFormer2
+
+    models = {"MossFormer2": MossFormer2}
+    if name not in models:
+        raise KeyError(f"model {name!r} is not ported; ported: {sorted(models)}")
+    return models[name]
+
+
+def from_pretrained(path: str) -> torch.nn.Module:
+    """The model stored under `path` (model.json + params.npz), with its
+    weights, on the CPU in float32, in eval mode."""
+    tree, meta = load_checkpoint(path)
+    name = meta["model_name"]
+    model = get_model_cls(name)(**meta.get("model_args", {}))
+    model.load_state_dict(CONVERTERS[name](tree), strict=True)
+    return model.eval()

@@ -1,0 +1,112 @@
+"""The port runs where JAX does not exist.
+
+The machine with the card has PyTorch and no jax or flax, so the port and
+chip_smoke.py must import and run with jax, flax and the JAX package
+unimportable. A separator path that does not exist must raise, and the
+ported loudness must agree with the JAX package's host meter.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_RUN = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import targetdiarization_tpu_torch
+    mods = [m.name for m in pkgutil.walk_packages(targetdiarization_tpu_torch.__path__,
+                                                 "targetdiarization_tpu_torch.")]
+    for name in mods:
+        importlib.import_module(name)
+    import chip_smoke
+    from targetdiarization_tpu_torch.processors.audio import AudioProcessor
+    ap = AudioProcessor("checkpoints/sep-bootstrap", device="cpu")
+    assert ap.is_separate_speaker
+    t = np.arange(16000) / 16000.0
+    mix = (0.3 * np.sin(2 * np.pi * 150 * t) + 0.1 * np.sin(2 * np.pi * 410 * t)).astype(np.float32)
+    out = ap.separate_speaker(mix)
+    assert len(out) == 2 and all(o.shape == mix.shape and np.isfinite(o).all() for o in out)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"))
+    assert not leaked, leaked
+    print("ISOLATED_OK", len(mods))
+""")
+
+
+def test_port_and_chip_smoke_run_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED_OK" in proc.stdout
+
+
+def test_chip_smoke_without_cuda_fails_on_cuda_not_import():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this test checks the refusal on a machine without a card")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert "ImportError" not in proc.stderr and "ModuleNotFoundError" not in proc.stderr
+    assert '"ok": true' not in proc.stdout
+
+
+def test_missing_separator_checkpoint_raises(tmp_path):
+    from targetdiarization_tpu_torch.processors.audio import AudioProcessor
+
+    with pytest.raises(FileNotFoundError):
+        AudioProcessor(str(tmp_path / "no-such-checkpoint"), device="cpu")
+
+
+def test_unconfigured_separator_returns_input_twice():
+    from targetdiarization_tpu_torch.processors.audio import AudioProcessor
+
+    ap = AudioProcessor(device="cpu")
+    assert not ap.is_separate_speaker
+    x = np.linspace(-0.5, 0.5, 1000).astype(np.float32)
+    a, b = ap.separate_speaker(x)
+    np.testing.assert_array_equal(a, x)
+    np.testing.assert_array_equal(b, x)
+
+
+def test_unported_model_name_raises():
+    from targetdiarization_tpu_torch.runtime.registry import get_model_cls
+
+    with pytest.raises(KeyError, match="not ported"):
+        get_model_cls("ConvTasNet")
+
+
+def _signals():
+    rng = np.random.default_rng(3)
+    sr = 16000
+    t = np.arange(3 * sr) / sr
+    noise = (0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    gated = np.sin(2 * np.pi * 220 * t) * (t < 1.0) * 0.5 \
+        + np.sin(2 * np.pi * 880 * t) * (t > 2.0) * 0.001  # relative gate drops the quiet tail
+    short = (0.2 * rng.standard_normal(sr // 4)).astype(np.float32)  # under one 400 ms block
+    return [noise, gated.astype(np.float32), short]
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_loudness_matches_jax_package_meter(which):
+    from targetdiarization_tpu.utils.native import integrated_loudness_native
+    from targetdiarization_tpu_torch.ops.loudness import integrated_loudness
+
+    x = _signals()[which]
+    assert abs(integrated_loudness(x, 16000) - integrated_loudness_native(x, 16000)) <= 0.05
