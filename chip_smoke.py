@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: build its CUDA kernels, hold each against
-its plain PyTorch version, and drive `AudioProcessor.separate_speaker` on the
-512/24 MossFormer2 (`checkpoints/sep-bootstrap-512`).
+its plain PyTorch version, drive `AudioProcessor.separate_speaker` on the
+512/24 MossFormer2 (`checkpoints/sep-bootstrap-512`), and drive the ASR stage
+(`ASRProcessor` on `checkpoints/{vad,asr,punc}-bootstrap`) on synthetic
+speech of the kind the bootstrap models were trained on.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -26,6 +28,8 @@ import numpy as np
 T0 = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "checkpoints", "sep-bootstrap-512")
+ASR_CHECKPOINTS = {name: os.path.join(ROOT, "checkpoints", f"{name}-bootstrap")
+                   for name in ("vad", "asr", "punc")}
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, float32
 # outside the tensor cores, HBM3 bandwidth
@@ -193,6 +197,143 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
     return rows
 
 
+DWCONV_SHAPES = (  # (name, B, T, K, m, C, dilation, pad_l, pad_r) on the main path
+    ("separator conv0", 2, 20224, 39, 1, 256, 1, 19, 19),
+    ("separator conv1", 2, 20224, 39, 2, 256, 2, 38, 38),
+    ("SAN-M memory, 60 s rung", 1, 1000, 11, 1, 256, 1, 5, 5),
+    ("VAD memory, 30 s rung", 1, 2998, 13, 1, 64, 1, 10, 2),
+)
+
+
+def check_dwconv() -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv, dwconv_plain
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, batch, t, k, m, c, dil, pad_l, pad_r in DWCONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(batch, t, c * m, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(k, m, c, generator=gen, device="cuda") * 0.2).to(dtype)
+            args = (x, w, dil, pad_l, pad_r)
+            before = dwconv.launches
+            got = dwconv(*args)
+            want = dwconv_plain(*args)
+            if dwconv.launches != before + 1:
+                raise AssertionError("dwconv did not launch its kernel")
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            dname = str(dtype).split(".")[1]
+            t_out = got.shape[1]
+            # the library's one call on a ready (B, C*m, T + pads) input
+            xt = F.pad(x.transpose(1, 2), (pad_l, pad_r)).contiguous()
+            wt = w.permute(2, 1, 0).contiguous()
+            isz = x.element_size()
+            flops = 2.0 * batch * t_out * c * k * m  # float32 FMA work in both types
+            nbytes = isz * (batch * t * c * m + batch * t_out * c + k * m * c)
+            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            row = {"shape": name, "dtype": dname, "B": batch, "T": t, "K": k, "m": m, "C": c,
+                   "dilation": dil, "pads": [pad_l, pad_r], "flops": flops, "bytes": nbytes,
+                   "max_abs_err": err, "rel_err": rel,
+                   "ms": time_ms(lambda: dwconv(*args)),
+                   "plain_ms": time_ms(lambda: dwconv_plain(*args)),
+                   "library_ms": time_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit("dwconv", **row)
+            if not rel <= TOL[dname]:
+                raise AssertionError(f"dwconv {name} {dname}: kernel vs plain rel err "
+                                     f"{rel:.3g} > {TOL[dname]}")
+            rows.append(row)
+            del x, got, want, xt
+    return rows
+
+
+def check_flash_group(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
+                      e: int = 1024, masked_tail: int = 225) -> list[dict]:
+    import torch
+
+    from targetdiarization_tpu_torch.ops.kernels.flash import (flash_group_attention,
+                                                               flash_group_plain)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        q, k = rnd(batch, n_groups, g, d, scale=4.0), rnd(batch, n_groups, g, d, scale=4.0)
+        v, u = rnd(batch, n_groups, g, e), rnd(batch, n_groups, g, e)
+        mask = torch.ones(batch, n_groups, 1, g, device="cuda", dtype=dtype)
+        mask[:, -1, :, g - masked_tail:] = 0
+        args = (q, k, v, u, mask)
+        before = flash_group_attention.launches
+        got = flash_group_attention(*args)
+        want = flash_group_plain(*args)
+        if flash_group_attention.launches != before + 1:
+            raise AssertionError("flash_group_attention did not launch its kernel")
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        err, rel = max(x[0] for x in errs), max(x[1] for x in errs)
+        dname = str(dtype).split(".")[1]
+        isz = q.element_size()
+        bg = batch * n_groups
+        # targetdiarization_tpu/ops/pallas/flash.py:223-227's counts, at this type's size
+        flops = 2.0 * bg * (g * g * d + 2 * g * g * e)
+        nbytes = isz * bg * (2 * g * d + 4 * g * e + g)
+        bound_ms, bound_by = bound(flops, nbytes, dname)
+        row = {"dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d, "e": e,
+               "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
+               "max_abs_err": err, "rel_err": rel,
+               "ms": time_ms(lambda: flash_group_attention(*args)),
+               "plain_ms": time_ms(lambda: flash_group_plain(*args), iters=5),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        emit("flash_group", **row)
+        if not rel <= TOL[dname]:
+            raise AssertionError(f"flash_group {dname}: kernel vs plain rel err "
+                                 f"{rel:.3g} > {TOL[dname]}")
+        rows.append(row)
+        del args, q, k, v, u, got, want
+    return rows
+
+
+def plain_kernels():
+    """Every kernel wrapper of the port patched to its plain version."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwconv_op
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv_plain
+    from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm_plain
+    from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated_plain
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(separation, "ffconvm", ffconvm_plain))
+    stack.enter_context(mock.patch.object(separation, "flash_gated", flash_gated_plain))
+    stack.enter_context(mock.patch.object(dwconv_op, "dwconv", dwconv_plain))
+    return stack
+
+
+def reset_launches() -> None:
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
+    from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm
+    from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated, flash_group_attention
+
+    for fn in (ffconvm, flash_gated, flash_group_attention, dwconv):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
+    from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm
+    from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated, flash_group_attention
+
+    return {"ffconvm": ffconvm.launches, "flash_gated": flash_gated.launches,
+            "flash_group": flash_group_attention.launches, "dwconv": dwconv.launches}
+
+
 # ---------------- the slice: AudioProcessor.separate_speaker ----------------
 
 
@@ -247,11 +388,7 @@ def run_clips(ap, clips: dict, label: str) -> dict:
 
 def check_slice() -> dict:
     import torch
-    from unittest import mock
 
-    from targetdiarization_tpu_torch.models import separation
-    from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm, ffconvm_plain
-    from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated, flash_gated_plain
     from targetdiarization_tpu_torch.processors.audio import AudioProcessor
 
     clips = {"12s": two_voice_mix(12.0, seed=0), "3s": two_voice_mix(3.0, seed=1)}
@@ -266,20 +403,19 @@ def check_slice() -> dict:
 
     # the main path, counted: one forward per call (the 12 s clip is two
     # 160k windows in one batch, the 3 s clip one 64k bucket)
-    ffconvm.launches = 0
-    flash_gated.launches = 0
+    reset_launches()
     main = run_clips(ap, clips, "bf16 kernels")
-    launches = {"ffconvm": ffconvm.launches, "flash_gated": flash_gated.launches}
+    launches = read_launches()
     forwards = len(clips)
-    want = {"ffconvm": 5 * layers * forwards, "flash_gated": layers * forwards}
-    emit("launches", forwards=forwards, **launches)
+    want = {"ffconvm": 5 * layers * forwards, "flash_gated": layers * forwards,
+            "flash_group": 0, "dwconv": 2 * layers * forwards}
+    emit("launches", path="separate_speaker", forwards=forwards, **launches)
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} on the main path, want {want}")
+        raise AssertionError(f"kernel launches {launches} on the separator path, want {want}")
 
     ap32 = AudioProcessor(CHECKPOINT, device="cuda", compute_dtype="float32")
     kern32 = run_clips(ap32, clips, "f32 kernels")
-    with mock.patch.object(separation, "ffconvm", ffconvm_plain), \
-            mock.patch.object(separation, "flash_gated", flash_gated_plain):
+    with plain_kernels():
         plain32 = run_clips(ap32, clips, "f32 plain")
     for name in clips:
         f32 = [si_sdr(kern32[name][s], plain32[name][s]) for s in range(2)]
@@ -293,30 +429,309 @@ def check_slice() -> dict:
     return launches
 
 
-def kernel_line(ff_rows: list, fl_rows: list, launches: dict) -> dict:
-    """One entry per kernel: bf16 (the main path's type) at the 160k bucket's
-    shapes (B 2, T 20224), summed over one layer pair's calls; the bound is
-    that of the layer's calls taken together."""
-    per_layer = {"to_hidden": 1, "to_qk": 1, "to_out": 1, "to_u": 2}  # to_v = to_u's shape
+# ---------------- the slice: ASRProcessor (VAD, Paraformer, punctuation) ----------------
+#
+# Speech of the kind the bootstrap models were trained on: a numpy copy of
+# targetdiarization_tpu/train/synth.py (BOOT_CHARS, _char_params, synth_char,
+# synth_utterance), which this script cannot import on a machine without jax.
 
-    def entry(name, source, replaces, rows, weights):
-        bf = [(r, weights(r)) for r in rows if r["dtype"] == "bfloat16"]
+BOOT_CHARS = "一二三四五六七八九十天地人日月水火山石田土王中大小上下左右心口手"
+
+
+def _char_params(idx: int) -> dict:
+    f1 = 280.0 + 170.0 * (idx % 6)
+    f2 = 1000.0 + 240.0 * ((idx // 6) % 6)
+    dur = 0.16 + 0.05 * (idx % 3)
+    fricative = (idx % 8) == 7
+    return {"f1": f1, "f2": f2, "dur": dur, "fricative": fricative}
+
+
+def synth_char(idx: int, rng: np.random.Generator, sr: int = SR) -> np.ndarray:
+    """One formant-synthesised syllable for char #idx, with jitter."""
+    p = _char_params(idx)
+    dur = p["dur"] * rng.uniform(0.9, 1.1)
+    n = int(dur * sr)
+    t = np.arange(n) / sr
+    bw = 130.0
+    if p["fricative"]:
+        noise = rng.standard_normal(n).astype(np.float32)
+        spec = np.fft.rfft(noise)
+        freqs = np.fft.rfftfreq(n, 1.0 / sr)
+        shape = (np.exp(-((freqs - p["f1"]) / (2 * bw)) ** 2)
+                 + 0.8 * np.exp(-((freqs - p["f2"]) / (2 * bw)) ** 2))
+        out = np.fft.irfft(spec * shape, n=n).astype(np.float32)
+    else:
+        f0 = rng.uniform(95.0, 220.0)
+        out = np.zeros(n, np.float32)
+        k_max = int(4000.0 / f0)
+        for k in range(1, k_max + 1):
+            fk = k * f0
+            amp = (np.exp(-((fk - p["f1"]) / bw) ** 2)
+                   + 0.7 * np.exp(-((fk - p["f2"]) / bw) ** 2)
+                   + 0.02 / k)
+            phase = rng.uniform(0, 2 * np.pi)
+            out += (amp * np.sin(2 * np.pi * fk * t + phase)).astype(np.float32)
+    att = max(int(0.02 * sr), 1)
+    env = np.ones(n, np.float32)
+    env[:att] = np.linspace(0, 1, att)
+    env[-att:] *= np.linspace(1, 0, att)
+    out *= env
+    peak = np.abs(out).max() + 1e-9
+    return (out / peak * rng.uniform(0.25, 0.6)).astype(np.float32)
+
+
+def synth_utterance(text: str, rng: np.random.Generator, sr: int = SR,
+                    noise_snr_db: float | None = None):
+    """`text` (chars of BOOT_CHARS) -> (audio, [(start_s, end_s) per char])."""
+    pieces = [np.zeros(int(rng.uniform(0.05, 0.15) * sr), np.float32)]
+    cursor = len(pieces[0])
+    ranges = []
+    for i, ch in enumerate(text):
+        idx = BOOT_CHARS.index(ch)
+        unit = synth_char(idx, rng, sr)
+        ranges.append((cursor / sr, (cursor + len(unit)) / sr))
+        pieces.append(unit)
+        cursor += len(unit)
+        if i < len(text) - 1:
+            gap = np.zeros(int(rng.uniform(0.02, 0.07) * sr), np.float32)
+            pieces.append(gap)
+            cursor += len(gap)
+    pieces.append(np.zeros(int(rng.uniform(0.05, 0.15) * sr), np.float32))
+    audio = np.concatenate(pieces)
+    if noise_snr_db is not None:
+        noise = rng.standard_normal(len(audio)).astype(np.float32)
+        sig_p = np.mean(audio ** 2) + 1e-12
+        noise_p = np.mean(noise ** 2)
+        noise *= np.sqrt(sig_p / noise_p * 10 ** (-noise_snr_db / 10))
+        audio = audio + noise
+    return audio.astype(np.float32), ranges
+
+
+def cer(ref: str, hyp: str) -> float:
+    """Character error rate (Levenshtein distance / len(ref))."""
+    if not ref:
+        return 0.0 if not hyp else 1.0
+    d = np.arange(len(hyp) + 1, dtype=np.int32)
+    for i, rc in enumerate(ref, 1):
+        prev = d[0]
+        d[0] = i
+        for j, hc in enumerate(hyp, 1):
+            cur = d[j]
+            d[j] = min(d[j] + 1, d[j - 1] + 1, prev + (rc != hc))
+            prev = cur
+    return float(d[-1]) / len(ref)
+
+
+PUNCT = "，。？、！"
+
+
+def strip_punct(text: str) -> str:
+    return "".join(ch for ch in text if ch not in PUNCT)
+
+
+def asr_inputs(seed: int = 7) -> dict:
+    """Four utterances of 4-12 characters, a ~45 s clip of utterances and
+    silences (the 60 s rung: T = 1000 LFR frames) and its first 30 s (the
+    VAD's top rung)."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return "".join(BOOT_CHARS[int(rng.integers(len(BOOT_CHARS)))] for _ in range(n))
+
+    texts = [text(n) for n in (4, 7, 10, 12)]
+    utts = [synth_utterance(t, rng)[0] for t in texts]
+    pieces, long_text = [], []
+    while sum(len(p) for p in pieces) < 45 * SR:
+        t = text(int(rng.integers(4, 13)))
+        pieces.append(synth_utterance(t, rng)[0])
+        pieces.append(np.zeros(int(rng.uniform(0.5, 1.5) * SR), np.float32))
+        long_text.append(t)
+    long = np.concatenate(pieces)[:int(46 * SR)]
+    return {"texts": texts, "utts": utts, "long": long, "long_text": "".join(long_text),
+            "vad30": long[:30 * SR]}
+
+
+def run_asr_calls(ap, data: dict, label: str, timed: bool = False) -> dict:
+    """The ASR stage's entry points on `data`; wall times when `timed`."""
+    import torch
+
+    out: dict = {}
+
+    def call(name, audio_s, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if timed:
+            emit("asr_call", path=label, call=name, audio_s=audio_s, wall_s=wall,
+                 rtfx=audio_s / wall if audio_s else None)
+        return res
+
+    out["utts"] = [call(f"asr_detection {len(u) / SR:.2f} s", len(u) / SR,
+                        lambda u=u: ap.asr_detection(u, SR)[0]) for u in data["utts"]]
+    out["batch"] = call("asr_detection_batch x4", sum(len(u) for u in data["utts"]) / SR,
+                        lambda: ap.asr_detection_batch(data["utts"], SR))
+    out["long"] = call(f"asr_detection {len(data['long']) / SR:.1f} s", len(data["long"]) / SR,
+                       lambda: ap.asr_detection(data["long"], SR)[0])
+    out["vad_long"] = call(f"vad_detection {len(data['long']) / SR:.1f} s",
+                           len(data["long"]) / SR, lambda: ap.vad_detection(data["long"], SR))
+    out["vad30"] = call("vad_detection 30 s", 30.0, lambda: ap.vad_detection(data["vad30"], SR))
+    split = call(f"asr_vad_split {len(data['long']) / SR:.1f} s", len(data["long"]) / SR,
+                 lambda: ap.asr_vad_split(data["long"], SR))
+    out["split"] = [(s, e, len(c)) for s, e, c in split]
+    raw = [strip_punct(r["text"]) for r in out["batch"]]
+    out["punc"] = call("punctuation_restore_batch x4", None,
+                       lambda: ap.punctuation_restore_batch(raw))
+    return out
+
+
+def check_timestamps(res: dict, label: str) -> None:
+    """Monotonic [start, end] lists, one entry per character of the text."""
+    for r in res["utts"] + res["batch"] + [res["long"]]:
+        ts, text = r["timestamp"], strip_punct(r["text"])
+        if len(ts) != len(text):
+            raise AssertionError(f"{label}: {len(ts)} timestamps for {len(text)} "
+                                 f"characters in {text!r}")
+        flat = [x for se in ts for x in se]
+        if any(b < a for a, b in zip(flat, flat[1:])):
+            raise AssertionError(f"{label}: timestamps not monotonic: {ts}")
+
+
+def same_results(a: dict, b: dict, label: str) -> None:
+    """Same texts, punctuation and VAD segments; timestamps within 60 ms."""
+    ra = a["utts"] + a["batch"] + [a["long"]]
+    rb = b["utts"] + b["batch"] + [b["long"]]
+    for x, y in zip(ra, rb):
+        if x["text"] != y["text"] or len(x["timestamp"]) != len(y["timestamp"]):
+            raise AssertionError(f"{label}: {x['text']!r} vs {y['text']!r}")
+        for (s1, e1), (s2, e2) in zip(x["timestamp"], y["timestamp"]):
+            if abs(s1 - s2) > 60 or abs(e1 - e2) > 60:
+                raise AssertionError(f"{label}: timestamps differ by more than 60 ms")
+    for key in ("vad_long", "vad30", "split", "punc"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{label}: {key} differs: {a[key]} vs {b[key]}")
+
+
+def check_asr() -> dict:
+    import torch
+
+    from targetdiarization_tpu_torch.models.asr import _SAMPLE_LADDER, LFR_N
+    from targetdiarization_tpu_torch.models.features import num_frames
+    from targetdiarization_tpu_torch.processors.asr import ASRProcessor
+
+    data = asr_inputs()
+    rungs = sorted({_SAMPLE_LADDER.bucket(len(u)) / SR for u in data["utts"]})
+    long_rung = _SAMPLE_LADDER.bucket(len(data["long"])) / SR
+    emit("asr_inputs", texts=data["texts"], seconds=[len(u) / SR for u in data["utts"]],
+         rungs_s=rungs, long_s=len(data["long"]) / SR)
+    if len(rungs) < 2 or long_rung != 60:
+        raise AssertionError(f"inputs land in rungs {rungs} and {long_rung}; "
+                             "want two or more, and 60 s")
+    kw = {f"{k}_model": v for k, v in ASR_CHECKPOINTS.items()}
+    t = time.time()
+    ap = ASRProcessor(**kw, device="cuda")
+    if ap.asr.compute_dtype != torch.bfloat16:
+        raise AssertionError("the ASR engines did not load in bfloat16 on the card")
+    emit("asr_load", load_s=time.time() - t)
+    run_asr_calls(ap, data, "warm-up")
+
+    # the main path, counted: every Paraformer and VAD forward, by hooks
+    forwards = {"asr": 0, "vad": 0}
+    hooks = [ap.asr.model.register_forward_hook(lambda *_: forwards.__setitem__(
+                 "asr", forwards["asr"] + 1)),
+             ap.vad.model.register_forward_hook(lambda *_: forwards.__setitem__(
+                 "vad", forwards["vad"] + 1))]
+    reset_launches()
+    main = run_asr_calls(ap, data, "bf16 kernels", timed=True)
+    launches = read_launches()
+    for h in hooks:
+        h.remove()
+    emit("launches", path="ASRProcessor", paraformer_forwards=forwards["asr"],
+         vad_forwards=forwards["vad"], **launches)
+    want = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0,
+            "dwconv": 12 * forwards["asr"] + 4 * forwards["vad"]}
+    if launches != want or not forwards["asr"] or not forwards["vad"]:
+        raise AssertionError(f"kernel launches {launches} on the ASR path with {forwards} "
+                             f"forwards, want {want}")
+    check_timestamps(main, "bf16 kernels")
+
+    ap32 = ASRProcessor(**kw, device="cuda", compute_dtype="float32")
+    kern32 = run_asr_calls(ap32, data, "f32 kernels", timed=True)
+    with plain_kernels():
+        plain32 = run_asr_calls(ap32, data, "f32 plain", timed=True)
+    check_timestamps(kern32, "f32 kernels")
+    same_results(kern32, plain32, "f32 kernels vs f32 plain")
+    for label, res in (("bf16 kernels", main), ("f32 kernels", kern32)):
+        empty = [t for t, r in zip(data["texts"], res["utts"]) if not r["text"]]
+        if empty:
+            raise AssertionError(f"{label}: empty transcripts for trained utterances {empty}")
+
+    # bf16 against f32 plain: the encoder output at the 60 s rung
+    long_b = np.pad(data["long"], (0, 60 * SR - len(data["long"])))[None]
+    t_lfr = [-(-num_frames(len(data["long"])) // LFR_N)]
+    with torch.inference_mode():
+        enc_bf = ap.asr.forward_device(long_b, t_lfr)["encoder_out"].float()
+        with plain_kernels():
+            enc_32 = ap32.asr.forward_device(long_b, t_lfr)["encoder_out"]
+    _, enc_rel = rel_err(enc_bf, enc_32)
+    cer_bf16 = [cer(strip_punct(b["text"]), strip_punct(a["text"]))
+                for a, b in zip(main["utts"] + [main["long"]],
+                                plain32["utts"] + [plain32["long"]])]
+    cer_ref = [cer(t, strip_punct(r["text"])) for t, r in zip(data["texts"], kern32["utts"])]
+    emit("asr_agreement", encoder_rel_err_bf16_vs_f32_plain=enc_rel,
+         cer_bf16_vs_f32_plain=cer_bf16, cer_f32_vs_rendered_text=cer_ref,
+         cer_long_f32_vs_rendered_text=cer(data["long_text"],
+                                           strip_punct(kern32["long"]["text"])),
+         texts_bf16=[r["text"] for r in main["utts"]],
+         texts_f32=[r["text"] for r in kern32["utts"]],
+         vad30_segments=kern32["vad30"])
+    if not enc_rel <= 0.1:
+        raise AssertionError(f"bf16 encoder output vs f32 plain rel err {enc_rel:.3g} > 0.1")
+    return launches
+
+
+def kernel_line(rows: dict, path_launches: dict) -> dict:
+    """One entry per kernel, in bf16 (the main path's type): ffconvm and
+    flash_gated summed over one 512/24 layer pair's calls at the 160k
+    bucket (B 2, T 20224), dwconv over the pair's two FSMN convs, and
+    flash_group at the gated kernel's shape. The bound is that of the
+    calls taken together; `launches` sums the main-path runs of both
+    slices, `launches_by_path` splits them."""
+    per_layer = {"to_hidden": 1, "to_qk": 1, "to_out": 1, "to_u": 2,  # to_v = to_u's shape
+                 "separator conv0": 1, "separator conv1": 1}
+
+    def entry(name, source, replaces, kind, weights, peak, per):
+        bf = [(r, weights(r)) for r in rows[kind] if r["dtype"] == "bfloat16" and weights(r)]
         bound_ms, bound_by = bound(sum(r["flops"] * w for r, w in bf),
-                                   sum(r["bytes"] * w for r, w in bf), "bfloat16")
+                                   sum(r["bytes"] * w for r, w in bf), peak)
+        library = [r["library_ms"] for r, _ in bf]
+        by_path = {p: n[name] for p, n in path_launches.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max(r["max_abs_err"] for r in rows[kind]),
                 "ms": sum(r["ms"] * w for r, w in bf),
                 "plain_ms": sum(r["plain_ms"] * w for r, w in bf),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                "dtype": "bfloat16", "per": "one layer pair, B 2, T 20224"}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None if None in library else sum(
+                    lib * w for lib, (_, w) in zip(library, bf)),
+                "dtype": "bfloat16", "per": per}
 
+    pair = "one 512/24 layer pair, B 2, T 20224"
     return {"kernels": [
         entry("ffconvm", "targetdiarization_tpu_torch/csrc/ffconvm.cu",
-              "targetdiarization_tpu/ops/pallas/ffconvm.py:117", ff_rows,
-              lambda r: per_layer[r["shape"]]),
+              "targetdiarization_tpu/ops/pallas/ffconvm.py:117", "ffconvm",
+              lambda r: per_layer[r["shape"]], "bfloat16", pair),
         entry("flash_gated", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
-              "targetdiarization_tpu/ops/pallas/flash.py:97", fl_rows, lambda r: 1),
+              "targetdiarization_tpu/ops/pallas/flash.py:97", "flash_gated", lambda r: 1,
+              "bfloat16", pair),
+        entry("dwconv", "targetdiarization_tpu_torch/csrc/dwconv.cu",
+              "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
+              lambda r: per_layer.get(r["shape"], 0), "float32",
+              pair + " (FSMN conv0 + conv1; float32 FMA work)"),
+        entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
+              "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group", lambda r: 1,
+              "bfloat16", "B 2, G 79, g 256, d 128, e 1024 (public op; no model calls it)"),
     ]}
 
 
@@ -326,10 +741,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = environment()
-    ff_rows = check_ffconvm()
-    fl_rows = check_flash()
-    launches = check_slice()
-    print(json.dumps(kernel_line(ff_rows, fl_rows, launches)), flush=True)
+    rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
+            "dwconv": check_dwconv(), "flash_group": check_flash_group()}
+    path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr()}
+    print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["count"]}}), flush=True)

@@ -1,13 +1,22 @@
-// Gated FLASH attention epilogue of MossFormer2's FlashBlock.
+// Grouped FLASH attention: the gated epilogue of MossFormer2's FlashBlock,
+// and the two-output form without the linear term and the gate.
 //
-// Replaces the TPU kernel targetdiarization_tpu/ops/pallas/flash.py
-// (_gated_kernel, _gated_pallas). Per (batch b, group):
+// The gated form replaces the TPU kernel targetdiarization_tpu/ops/pallas/
+// flash.py (_gated_kernel, _gated_pallas). Per (batch b, group):
 //   A     = relu(q k^T / g)^2 * mask[key]   (f32), then rounded to v's type
 //   att_v = A v + lq lin_kv                 (f32 accumulation)
 //   att_u = A u + lq lin_ku
 //   out   = att_u * v * sigmoid(att_v * u)  (f32), stored in v's type
 // q, k, lq: (B, G, g, d); v, u, out: (B, G, g, e); mask: (B, G, 1, g)
 // over key columns; lin_kv, lin_ku: (B, d, e).
+//
+// The two-output form (td_flash_group) replaces _kernel / _flash_pallas of
+// the same file (public op flash_group_attention): with the same A,
+//   out_v = A v,  out_u = A u              (f32 accumulation), stored in v's type.
+// It is the same kernel compiled without the lq rows and the gate. It does
+// 2 g^2 d + 4 g^2 e operations a group on g (2 d + 4 e + 1) elements, about
+// 128 operations a byte in bf16 at g 256, d 128, e 1024: bound by bytes in
+// bf16 and by float32 operations in f32.
 //
 // What bounds it on an H100: at 512/24 (g 256, d 128, e 1024) a group
 // does 2 g^2 d + 4 g (g + d) e operations on g (3 d + 3 e + 1) elements
@@ -37,20 +46,24 @@ constexpr int kCols = 64;    // key columns or e columns per pass
 constexpr int kChunk = 32;   // reduction depth per shared-memory stage
 constexpr int kLd = kCols + 4;
 
-// shared memory: at[(g + d)][kLd] holds [A | lq]^T, then two staging tiles
+// shared memory: at[(g + d)][kLd] holds [A | lq]^T (A^T alone for the
+// two-output form, d = 0), then two staging tiles
 size_t smem_bytes(int g, int d) {
     return (static_cast<size_t>(g + d) * kLd + 2 * kChunk * kLd) * sizeof(float);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_gated_kernel(
+// kGated: out = gate(...) from A, lq and lin_kv / lin_ku. Otherwise lq and
+// lin_* are unused and the kernel writes out = A v and out_u = A u.
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kThreads) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ u, const T* __restrict__ mask, const T* __restrict__ lq,
     const T* __restrict__ lin_kv, const T* __restrict__ lin_ku, T* __restrict__ out,
-    int n_groups, int g, int d, int e, float inv_g) {
+    T* __restrict__ out_u, int n_groups, int g, int d, int e, float inv_g) {
     extern __shared__ __align__(16) float smem[];
     float (*at)[kLd] = reinterpret_cast<float (*)[kLd]>(smem);
-    float (*s1)[kLd] = reinterpret_cast<float (*)[kLd]>(smem + static_cast<size_t>(g + d) * kLd);
+    const int depth = kGated ? g + d : g;  // rows of at: A^T, then lq^T
+    float (*s1)[kLd] = reinterpret_cast<float (*)[kLd]>(smem + static_cast<size_t>(depth) * kLd);
     float (*s2)[kLd] = s1 + kChunk;
 
     const int tid = threadIdx.x;
@@ -58,13 +71,14 @@ __global__ void __launch_bounds__(kThreads) flash_gated_kernel(
     const size_t bg = static_cast<size_t>(blockIdx.z) * n_groups + blockIdx.y;
     const T* qg = q + bg * g * d;
     const T* kg = k + bg * g * d;
-    const T* lqg = lq + bg * g * d;
+    const T* lqg = kGated ? lq + bg * g * d : nullptr;
     const T* vg = v + bg * g * e;
     const T* ug = u + bg * g * e;
     const T* mg = mask + bg * g;
-    const T* kvb = lin_kv + static_cast<size_t>(blockIdx.z) * d * e;
-    const T* kub = lin_ku + static_cast<size_t>(blockIdx.z) * d * e;
+    const T* kvb = kGated ? lin_kv + static_cast<size_t>(blockIdx.z) * d * e : nullptr;
+    const T* kub = kGated ? lin_ku + static_cast<size_t>(blockIdx.z) * d * e : nullptr;
     T* og = out + bg * g * e;
+    T* ogu = kGated ? nullptr : out_u + bg * g * e;
 
     // staging loader: one column (row of the tile) per thread, 8 of the 32 depth
     const int lc = tid % kCols;
@@ -114,14 +128,16 @@ __global__ void __launch_bounds__(kThreads) flash_gated_kernel(
         }
     }
     // lq rows below A: at[g + dd][i] = lq[i0 + i][dd]
-    for (int idx = tid; idx < kQRows * d; idx += kThreads) {
-        const int i = idx / d, dd = idx % d;
-        at[g + dd][i] = (i0 + i < g) ? td::to_f(lqg[static_cast<size_t>(i0 + i) * d + dd]) : 0.f;
+    if constexpr (kGated) {
+        for (int idx = tid; idx < kQRows * d; idx += kThreads) {
+            const int i = idx / d, dd = idx % d;
+            at[g + dd][i] = (i0 + i < g) ? td::to_f(lqg[static_cast<size_t>(i0 + i) * d + dd]) : 0.f;
+        }
     }
     __syncthreads();
 
-    // ---- stage 2: [A | lq] . [v ; lin_kv] and [A | lq] . [u ; lin_ku], 64 e columns at a time
-    const int depth = g + d;
+    // ---- stage 2: [A | lq] . [v ; lin_kv] and [A | lq] . [u ; lin_ku] (A v and A u
+    // for the two-output form), 64 e columns at a time
     for (int e0 = 0; e0 < e; e0 += kCols) {
         float av_acc[4][4], au_acc[4][4];
 #pragma unroll
@@ -135,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) flash_gated_kernel(
                 const int kk = k0 + lk + j;
                 float vv = 0.f, uu = 0.f;
                 if (col < e && kk < depth) {
-                    if (kk < g) {
+                    if (!kGated || kk < g) {
                         vv = td::to_f(vg[static_cast<size_t>(kk) * e + col]);
                         uu = td::to_f(ug[static_cast<size_t>(kk) * e + col]);
                     } else {
@@ -175,29 +191,35 @@ __global__ void __launch_bounds__(kThreads) flash_gated_kernel(
                 const int cc = e0 + tx * 4 + c;
                 if (cc >= e) continue;
                 const size_t o = static_cast<size_t>(i) * e + cc;
-                const float vf = td::to_f(vg[o]);
-                const float uf = td::to_f(ug[o]);
-                og[o] = td::Store<T>::from_f((au_acc[r][c] * vf) * td::sigmoid_f(av_acc[r][c] * uf));
+                if constexpr (kGated) {
+                    const float vf = td::to_f(vg[o]);
+                    const float uf = td::to_f(ug[o]);
+                    og[o] = td::Store<T>::from_f((au_acc[r][c] * vf) *
+                                                 td::sigmoid_f(av_acc[r][c] * uf));
+                } else {
+                    og[o] = td::Store<T>::from_f(av_acc[r][c]);
+                    ogu[o] = td::Store<T>::from_f(au_acc[r][c]);
+                }
             }
         }
     }
 }
 
-template <typename T>
+template <typename T, bool kGated>
 int launch(const void* q, const void* k, const void* v, const void* u, const void* mask,
-           const void* lq, const void* lin_kv, const void* lin_ku, void* out, int batch,
-           int n_groups, int g, int d, int e, cudaStream_t stream) {
-    const size_t smem = smem_bytes(g, d);
-    cudaError_t err = cudaFuncSetAttribute(flash_gated_kernel<T>,
+           const void* lq, const void* lin_kv, const void* lin_ku, void* out, void* out_u,
+           int batch, int n_groups, int g, int d, int e, cudaStream_t stream) {
+    const size_t smem = smem_bytes(g, kGated ? d : 0);
+    cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, kGated>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((g + kQRows - 1) / kQRows, n_groups, batch);
-    flash_gated_kernel<T><<<grid, kThreads, smem, stream>>>(
+    flash_kernel<T, kGated><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(u), static_cast<const T*>(mask), static_cast<const T*>(lq),
         static_cast<const T*>(lin_kv), static_cast<const T*>(lin_ku), static_cast<T*>(out),
-        n_groups, g, d, e, 1.0f / static_cast<float>(g));
+        static_cast<T*>(out_u), n_groups, g, d, e, 1.0f / static_cast<float>(g));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -209,8 +231,19 @@ extern "C" int td_flash_gated(const void* q, const void* k, const void* v, const
                               int d, int e, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)
-        return launch<__nv_bfloat16>(q, k, v, u, mask, lq, lin_kv, lin_ku, out, batch, n_groups,
-                                     g, d, e, s);
-    return launch<float>(q, k, v, u, mask, lq, lin_kv, lin_ku, out, batch, n_groups, g, d, e,
-                         s);
+        return launch<__nv_bfloat16, true>(q, k, v, u, mask, lq, lin_kv, lin_ku, out, nullptr,
+                                           batch, n_groups, g, d, e, s);
+    return launch<float, true>(q, k, v, u, mask, lq, lin_kv, lin_ku, out, nullptr, batch,
+                               n_groups, g, d, e, s);
+}
+
+extern "C" int td_flash_group(const void* q, const void* k, const void* v, const void* u,
+                              const void* mask, void* out_v, void* out_u, int batch,
+                              int n_groups, int g, int d, int e, int is_bf16, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (is_bf16)
+        return launch<__nv_bfloat16, false>(q, k, v, u, mask, nullptr, nullptr, nullptr, out_v,
+                                            out_u, batch, n_groups, g, d, e, s);
+    return launch<float, false>(q, k, v, u, mask, nullptr, nullptr, nullptr, out_v, out_u,
+                                batch, n_groups, g, d, e, s);
 }

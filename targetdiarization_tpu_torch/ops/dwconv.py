@@ -1,9 +1,10 @@
 """Depthwise and grouped-to-one 1-D convolution, time-major.
 
-Counterpart of targetdiarization_tpu/ops/dwconv.py::dw_conv1d. On the
-main path every depthwise conv outside the FFConvM kernel is at most 512
-channels wide (the FSMN's 39-tap dilated convs at 256), where the JAX
-package also leaves the op to its compiler, so this is plain PyTorch.
+Counterpart of targetdiarization_tpu/ops/dwconv.py::dw_conv1d. Every call
+goes to `ops.kernels.dwconv`: on the card that is the CUDA kernel for
+every shape the models use (the separator's FSMN memory, the SAN-M
+memory of the Paraformer, the VAD's memory), on the CPU its plain
+version. This function only resolves the padding and the unbatched form.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
-import torch.nn.functional as F
+
+from .kernels.dwconv import dwconv
 
 
 def dw_conv1d(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
@@ -31,10 +33,8 @@ def dw_conv1d(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
             raise ValueError(f"unsupported padding {padding!r}")
         pad_l, pad_r = span // 2, span - span // 2
     else:
-        pad_l, pad_r = padding
+        pad_l, pad_r = (int(p) for p in padding)
     squeeze = x.dim() == 2
     xb = x[None] if squeeze else x
-    xt = F.pad(xb.transpose(1, 2), (pad_l, pad_r))  # (B, Cin, T + pads)
-    w = kernel.permute(2, 1, 0).to(x.dtype)          # (C, m, K): torch grouped layout
-    out = F.conv1d(xt, w, dilation=dilation, groups=c).transpose(1, 2)
+    out = dwconv(xb.contiguous(), kernel, dilation, pad_l, pad_r)
     return out[0] if squeeze else out

@@ -3,7 +3,9 @@
 All of `csrc/*.cu` compile in one `nvcc` call into one shared library with
 a plain `extern "C"` interface (no PyTorch headers, so a build takes
 seconds). The library lands in `_build/` inside the package, named by a
-hash of the sources and flags, and is built at first use.
+hash of the sources and flags, and is built at first use. Each wrapper
+declares its C function's ctypes argument types with `declare`, which
+records them in SIGNATURES (the tests hold them against the sources).
 """
 
 from __future__ import annotations
@@ -76,3 +78,21 @@ def load_library() -> ctypes.CDLL:
     if not os.path.exists(path):
         build(path)
     return ctypes.CDLL(path)
+
+
+SIGNATURES: dict[str, list] = {}
+
+
+def declare(symbol: str, argtypes: list):
+    """Records `symbol`'s ctypes argument types (the C function returns a
+    cudaError_t as int); returns a function that binds it at first call."""
+    SIGNATURES[symbol] = argtypes
+
+    @functools.cache
+    def bound():
+        fn = getattr(load_library(), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    return bound

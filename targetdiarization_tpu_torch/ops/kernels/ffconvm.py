@@ -11,12 +11,11 @@ rows add silu(bias) whatever the model's mask says.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from ._build import load_library
+from ._build import declare
 
 TAPS = 17
 NORMS = ("scalenorm", "layernorm")
@@ -57,14 +56,8 @@ def ffconvm_plain(x, na, nb, weight, bias, dwk, norm: str = "scalenorm"):
     return acc.to(x.dtype)
 
 
-@functools.cache
-def _fn():
-    lib = load_library()
-    fn = lib.td_ffconvm
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
-        [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_fn = declare("td_ffconvm", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+               + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(x, weight, dwk, norm):

@@ -1,21 +1,29 @@
-"""Gated FLASH attention: grouped relu^2 attention + linear term + gate.
+"""Grouped FLASH attention: the gated form and the two-output form.
 
-Counterpart of targetdiarization_tpu/ops/pallas/flash.py::
-flash_gated_attention. The kernel is `csrc/flash_gated.cu`;
-`flash_gated_plain` is the same function in plain PyTorch, following the
-TPU kernel's arithmetic: A in float32, rounded to v's type before the
-products, float32 accumulation, the gate in float32, the output in v's
-type.
+Counterparts of targetdiarization_tpu/ops/pallas/flash.py::
+flash_gated_attention (grouped relu^2 attention + linear term + gate,
+which MossFormer2's FlashBlock runs) and ::flash_group_attention (the
+public two-output op, out_v = A v and out_u = A u). Both kernels are
+`csrc/flash_gated.cu`; `flash_gated_plain` and `flash_group_plain` are
+the same functions in plain PyTorch, following the TPU kernels'
+arithmetic: A in float32, rounded to v's type before the products,
+float32 accumulation, the gate in float32, outputs in v's type.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from ._build import load_library
+from ._build import declare
+
+
+def _attn(q, k, v, mask):
+    """relu(q k^T / g)^2 * mask in float32, rounded to v's type, as float32."""
+    g = q.shape[-2]
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / g)
+    return (torch.relu(sim).square() * mask.float()).to(v.dtype).float()
 
 
 def flash_gated_plain(q, k, v, u, mask, lq, lin_kv, lin_ku):
@@ -23,9 +31,7 @@ def flash_gated_plain(q, k, v, u, mask, lq, lin_kv, lin_ku):
     columns; lin_kv, lin_ku (B, d, e). Returns out (B, G, g, e):
     out = (A u + lq lin_ku) * v * sigmoid((A v + lq lin_kv) * u),
     A = relu(q k^T / g)^2 * mask."""
-    g = q.shape[-2]
-    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / g)
-    attn = (torch.relu(sim).square() * mask.float()).to(v.dtype).float()
+    attn = _attn(q, k, v, mask)
     lqf = lq.float()
     att_v = torch.matmul(attn, v.float()) + torch.matmul(lqf, lin_kv.float()[:, None])
     att_u = torch.matmul(attn, u.float()) + torch.matmul(lqf, lin_ku.float()[:, None])
@@ -33,24 +39,34 @@ def flash_gated_plain(q, k, v, u, mask, lq, lin_kv, lin_ku):
     return out.to(v.dtype)
 
 
-@functools.cache
-def _fn():
-    lib = load_library()
-    fn = lib.td_flash_gated
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def flash_group_plain(q, k, v, u, mask):
+    """q, k (B, G, g, d); v, u (B, G, g, e); mask (B, G, 1, g) over key
+    columns. Returns (out_v, out_u), each (B, G, g, e) in v's type."""
+    attn = _attn(q, k, v, mask)
+    return (torch.matmul(attn, v.float()).to(v.dtype),
+            torch.matmul(attn, u.float()).to(v.dtype))
 
 
-def _check(q, k, v, u, mask, lq, lin_kv, lin_ku):
+_fn = declare("td_flash_gated", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_group_fn = declare("td_flash_group",
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _check(q, k, v, u, mask, lq=None, lin_kv=None, lin_ku=None):
+    """Validates a CUDA call; the gated form passes lq, lin_kv and lin_ku."""
+    if q.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q and v must be (B, G, g, d) and (B, G, g, e), got "
+                         f"{tuple(q.shape)} and {tuple(v.shape)}")
     b, n_groups, g, d = q.shape
     e = v.shape[-1]
     want = {"q": (q, (b, n_groups, g, d)), "k": (k, (b, n_groups, g, d)),
-            "lq": (lq, (b, n_groups, g, d)), "v": (v, (b, n_groups, g, e)),
-            "u": (u, (b, n_groups, g, e)), "mask": (mask, (b, n_groups, 1, g)),
-            "lin_kv": (lin_kv, (b, d, e)), "lin_ku": (lin_ku, (b, d, e))}
+            "v": (v, (b, n_groups, g, e)), "u": (u, (b, n_groups, g, e)),
+            "mask": (mask, (b, n_groups, 1, g))}
+    if lq is not None:
+        want.update({"lq": (lq, (b, n_groups, g, d)), "lin_kv": (lin_kv, (b, d, e)),
+                     "lin_ku": (lin_ku, (b, d, e))})
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_gated kernel takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape or t.dtype != q.dtype or not t.is_contiguous() \
                 or t.device != q.device:
@@ -82,3 +98,30 @@ def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):
 
 
 flash_gated.launches = 0
+
+
+def flash_group_attention(q, k, v, u, mask):
+    """Grouped relu^2 attention with one A applied to v and u: q, k (B, G, g, d);
+    v, u (B, G, g, e); mask (B, G, 1, g). CPU tensors run `flash_group_plain`;
+    CUDA tensors launch the kernel (float32 or bfloat16, all inputs of one type)."""
+    if q.device.type == "cpu":
+        return flash_group_plain(q, k, v, u, mask)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_group_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k, v, u, mask)
+    b, n_groups, g, d = q.shape
+    e = v.shape[-1]
+    out_v = torch.empty_like(v)
+    out_u = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _group_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
+                          mask.data_ptr(), out_v.data_ptr(), out_u.data_ptr(),
+                          b, n_groups, g, d, e, int(q.dtype == torch.bfloat16),
+                          torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"td_flash_group failed with CUDA error {err}")
+    flash_group_attention.launches += 1
+    return out_v, out_u
+
+
+flash_group_attention.launches = 0

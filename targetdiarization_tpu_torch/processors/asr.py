@@ -1,0 +1,122 @@
+"""ASRProcessor: VAD, Paraformer ASR and punctuation.
+
+Counterpart of the VAD, local-Paraformer and punctuation parts of
+targetdiarization_tpu/processors/asr.py::ASRProcessor. Each engine is
+loaded from the checkpoint path it is given, or the constructor raises;
+an empty path leaves the engine out: `vad_detection` then returns the
+whole clip, `asr_detection` an empty result, and `punctuation_restore`
+the text unchanged. Unlike the JAX package, no path means no VAD: there
+is no random-weight engine.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..models.asr import ASREngine
+from ..models.punctuation import PunctuationEngine
+from ..models.vad import VADEngine
+
+
+def _load(engine_cls, path: str, what: str, device, compute_dtype):
+    if not path:
+        return None
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"{what} checkpoint {path!r} not found")
+    return engine_cls.from_pretrained(path, device=device, compute_dtype=compute_dtype)
+
+
+class ASRProcessor:
+    def __init__(self, vad_model: str = "", asr_model: str = "", asr_engine: str = "paraformer",
+                 punc_model: str = "", device: str | torch.device = "cuda",
+                 compute_dtype: str | None = None):
+        if asr_engine != "paraformer":
+            raise NotImplementedError(f"ASR engine {asr_engine!r} is not ported; "
+                                      "the port runs 'paraformer'")
+        self.vad = _load(VADEngine, vad_model, "VAD", device, compute_dtype)
+        self.asr = _load(ASREngine, asr_model, "ASR", device, compute_dtype)
+        self.punc = _load(PunctuationEngine, punc_model, "punctuation", device, compute_dtype)
+
+    # ---------------- VAD ----------------
+
+    @property
+    def is_vad(self) -> bool:
+        return self.vad is not None
+
+    def vad_detection(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                      max_end_silence_time: float | None = None, min_clip_sec: float = 0.0,
+                      max_clip_sec: float = 0.0) -> list:
+        """[[start_s, end_s], ...], with per-call silence and clip-length
+        overrides; without a VAD, the whole clip."""
+        if self.vad is None:
+            return [[0.0, len(audio_data) / sampling_rate]]
+        over = {"min_clip_sec": min_clip_sec, "max_clip_sec": max_clip_sec}
+        if max_end_silence_time is not None:
+            over["max_end_silence_time"] = max_end_silence_time
+        return self.vad.vad_detection(audio_data, sr=sampling_rate, **over)
+
+    def vad_detection_batch(self, clips: list, sampling_rate: int = 16000,
+                            **vad_kwargs) -> list:
+        """vad_detection for several clips in one forward."""
+        if self.vad is None:
+            return [[[0.0, len(c) / sampling_rate]] for c in clips]
+        return self.vad.vad_detection_batch(clips, sr=sampling_rate, **vad_kwargs)
+
+    def asr_vad_split(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                      **vad_kwargs) -> list:
+        """[(start_s, end_s, clip_audio), ...]"""
+        segs = self.vad_detection(audio_data, sampling_rate, **vad_kwargs)
+        return [(s, e, audio_data[int(s * sampling_rate): int(e * sampling_rate)])
+                for s, e in segs]
+
+    # ---------------- ASR ----------------
+
+    @property
+    def is_asr(self) -> bool:
+        return self.asr is not None
+
+    def asr_detection(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                      no_punc: bool = False) -> list:
+        """[{"text", "timestamp"}]; the text punctuated unless no_punc."""
+        if self.asr is None:
+            return [{"text": "", "timestamp": []}]
+        res = self.asr.asr_detection(audio_data, sr=sampling_rate)
+        if not no_punc and self.punc is not None and res and res[0]["text"]:
+            res[0]["text"] = self.punc.punctuation_restore(res[0]["text"])
+        return res
+
+    def asr_detection_batch(self, audios: list, sampling_rate: int = 16000,
+                            no_punc: bool = False) -> list:
+        """asr_detection over several utterances, one forward per sample rung."""
+        if self.asr is None:
+            return [{"text": "", "timestamp": []} for _ in audios]
+        results = self.asr.asr_detection_batch(audios, sr=sampling_rate)
+        if not no_punc and self.punc is not None:
+            for r in results:
+                if r["text"]:
+                    r["text"] = self.punc.punctuation_restore(r["text"])
+        return results
+
+    # ---------------- punctuation ----------------
+
+    @property
+    def is_punc(self) -> bool:
+        return self.punc is not None
+
+    def punctuation_restore(self, text: str) -> str:
+        if self.punc is None or not text:
+            return text
+        return self.punc.punctuation_restore(text)
+
+    def punctuation_restore_batch(self, texts: list) -> list:
+        """punctuation_restore over many texts in one forward."""
+        if self.punc is None:
+            return list(texts)
+        todo = [t for t in texts if t]
+        if not todo:
+            return list(texts)
+        done = iter(self.punc.punctuation_restore_batch(todo))
+        return [next(done) if t else t for t in texts]

@@ -2,18 +2,26 @@
 
 The JAX package's parameters come as nested dicts of numpy arrays
 (`runtime/params.py::load_checkpoint`, or a flax `init` moved to numpy).
-MossFormer2 trees come in two layouts: the shipped checkpoints' per-layer
-`mask_net/flash_{i}`, `mask_net/fsmn_{i}`, and the stacked
-`mask_net/layers/{flash,fsmn}` with a leading layer axis that the JAX
-model's `nn.scan` uses. Both convert to the same state dict.
+Scanned stacks come in two layouts, both converted to the same state
+dict: the shipped checkpoints' per-layer subtrees, and the stacked
+subtree with a leading layer axis that the JAX model's `nn.scan` uses
+(`runtime/params.py::upgrade_scan_layout` of the JAX package):
+- MossFormer2: `mask_net/flash_{i}`, `mask_net/fsmn_{i}`, or
+  `mask_net/layers/{flash,fsmn}`;
+- Paraformer: `encoder/block_{i}` and `dec_{i}`, or
+  `encoder/blocks/block` and `decoder_blocks/block`.
 
 Layout rules:
 - Dense kernel (in, out) -> Linear weight (out, in);
-- encoder Conv kernel (K, 1, N) -> conv1d weight (N, 1, K);
-- decoder ConvTranspose kernel (K, N, 1) -> flipped along K, then
-  (N, 1, K) for conv_transpose1d (flax's transposed conv does not flip
-  the kernel, PyTorch's does);
-- LayerNorm scale -> weight;
+- MossFormer2 encoder Conv kernel (K, 1, N) -> conv1d weight (N, 1, K);
+- MossFormer2 decoder ConvTranspose kernel (K, N, 1) -> flipped along K,
+  then (N, 1, K) for conv_transpose1d (flax's transposed conv does not
+  flip the kernel, PyTorch's does);
+- the CIF predictor's Conv kernel (3, in, out) -> conv1d weight (out, in, 3);
+- MultiHeadDotProductAttention query/key/value kernels (dim, h, hd) ->
+  Linear weight (h*hd, dim), biases (h, hd) -> (h*hd,); out kernel
+  (h, hd, dim) -> (dim, h*hd);
+- Embed embedding -> weight; LayerNorm scale -> weight;
 - depthwise kernels keep the JAX layout (K, m, C).
 """
 
@@ -39,18 +47,44 @@ def flatten(tree: dict, prefix: str = "") -> dict:
 _STACKED = re.compile(r"^(.*?)layers/(flash|fsmn)/(.+)$")
 
 
-def _unstack_layers(flat: dict) -> dict:
-    """.../layers/{flash,fsmn}/... (L, ...) -> .../{flash,fsmn}_{i}/..."""
+def _unstack(flat: dict, pattern: re.Pattern, fmt: str) -> dict:
+    """Split every leaf whose key matches `pattern` along its leading layer
+    axis into keys `fmt.format(*groups[:-1], i, groups[-1])`."""
     out = {}
     for key, v in flat.items():
-        m = _STACKED.fullmatch(key)
+        m = pattern.fullmatch(key)
         if m is None:
             out[key] = v
             continue
-        prefix, kind, rest = m.groups()
+        *head, rest = m.groups()
         for i in range(v.shape[0]):
-            out[f"{prefix}{kind}_{i}/{rest}"] = v[i]
+            out[fmt.format(*head, i, rest)] = v[i]
     return out
+
+
+def _unstack_layers(flat: dict) -> dict:
+    """.../layers/{flash,fsmn}/... (L, ...) -> .../{flash,fsmn}_{i}/..."""
+    return _unstack(flat, _STACKED, "{0}{1}_{2}/{3}")
+
+
+def _to_tensors(sd: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def _dense_rules(flat: dict, renames) -> dict:
+    """Renames applied in order, then "/" -> "."; a 2-D `kernel` becomes a
+    transposed Linear `weight`, `scale` and `embedding` become `weight`."""
+    sd = {}
+    for key, v in flat.items():
+        v = np.asarray(v, np.float32)
+        name = key
+        for pat, rep in renames:
+            name = pat.sub(rep, name)
+        if name.endswith("/kernel") and v.ndim == 2:
+            name, v = name[: -len("kernel")] + "weight", v.T
+        name = re.sub(r"(^|/)(scale|embedding)$", r"\1weight", name)
+        sd[name.replace("/", ".")] = v
+    return sd
 
 
 _RENAMES = (
@@ -83,7 +117,53 @@ def mossformer2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
             name = name[: -len("kernel")] + "weight"
             v = v.T
         sd[name.replace("/", ".")] = v
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return _to_tensors(sd)
 
 
-CONVERTERS = {"MossFormer2": mossformer2_state_dict}
+_PARAFORMER_STACKED = re.compile(r"^(encoder/blocks|decoder_blocks)/block/(.+)$")
+_PARAFORMER_RENAMES = (
+    (re.compile(r"^encoder/block_(\d+)/"), r"encoder/blocks/\1/"),
+    (re.compile(r"^dec_(\d+)/"), r"decoder_blocks/\1/"),
+    (re.compile(r"/fsmn/kernel$"), r"/fsmn"),
+)
+
+
+def paraformer_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.asr.Paraformer`, from either layer layout."""
+    flat = _unstack(flatten(tree.get("params", tree)), _PARAFORMER_STACKED, "{0}/{1}/{2}")
+    conv = flat.pop("predictor/conv/kernel", None)
+    sd = _dense_rules(flat, _PARAFORMER_RENAMES)
+    if conv is not None:
+        sd["predictor.conv.weight"] = np.asarray(conv, np.float32).transpose(2, 1, 0)
+    return _to_tensors(sd)
+
+
+def cttransformer_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.punctuation.CTTransformerPunc`."""
+    flat = flatten(tree.get("params", tree))
+    mha = {}
+    for key in [k for k in flat if re.match(r"^attn_\d+/", k)]:
+        v = np.asarray(flat.pop(key), np.float32)
+        if key.endswith("/out/kernel"):      # (h, hd, dim) -> (dim, h*hd)
+            v = v.reshape(-1, v.shape[-1]).T
+        elif key.endswith("/kernel"):        # (dim, h, hd) -> (h*hd, dim)
+            v = v.reshape(v.shape[0], -1).T
+        elif not key.endswith("/out/bias"):  # (h, hd) -> (h*hd,)
+            v = v.reshape(-1)
+        mha[key.replace("/kernel", "/weight")] = v
+    flat.update(mha)
+    sd = _dense_rules(flat, ((re.compile(r"^(ln1|attn|ln2|ff1|ff2)_(\d+)/"),
+                              r"layers/\2/\1/"),))
+    return _to_tensors(sd)
+
+
+def fsmn_vad_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.vad.FsmnVADNet`."""
+    sd = _dense_rules(flatten(tree.get("params", tree)),
+                      ((re.compile(r"^fsmn_(\d+)/"), r"blocks/\1/"),
+                       (re.compile(r"/memory/kernel$"), r"/memory")))
+    return _to_tensors(sd)
+
+
+CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_state_dict,
+              "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict}

@@ -1,15 +1,18 @@
-"""Compute-type policy for inference engines.
+"""Compute-type policy for inference engines, and the int16 audio upload.
 
 Counterpart of targetdiarization_tpu/runtime/precision.py: bfloat16 on the
 card, float32 on the CPU, overridable with `TD_COMPUTE_DTYPE` or an
 engine's `compute_dtype=` argument. Engines return float32 whatever they
-computed in.
+computed in. The ASR and VAD engines send audio to the device as int16
+and divide by 32768 there, as the JAX package does: the round trip
+changes the samples, so parity depends on it.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 _NAMES = {"float32": torch.float32, "f32": torch.float32,
@@ -27,3 +30,18 @@ def resolve_compute_dtype(requested: str | None, device: torch.device | str) -> 
             raise ValueError(f"unsupported compute dtype {name!r}; "
                              f"one of {sorted(_NAMES)}") from None
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+def quantize_i16(x) -> np.ndarray:
+    """Host side: float audio in [-1, 1] -> int16; integer input is cast."""
+    x = np.asarray(x)
+    if x.dtype.kind == "i":
+        return x.astype(np.int16)
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def dequantize_audio(audio: torch.Tensor) -> torch.Tensor:
+    """Device side: int16 audio -> float32 in [-1, 1]; float passes through."""
+    if audio.dtype == torch.int16:
+        return audio.float() / 32768.0
+    return audio

@@ -1,8 +1,9 @@
 """Checkpoint-driven model construction.
 
 Counterpart of targetdiarization_tpu/runtime/registry.py::from_pretrained:
-the checkpoint's own `model_name` picks the class. Only MossFormer2 is
-ported so far; any other name raises.
+the checkpoint's own `model_name` picks the class. The ported models are
+MossFormer2, Paraformer, CTTransformerPunc and FsmnVADNet; any other name
+raises.
 """
 
 from __future__ import annotations
@@ -14,9 +15,13 @@ from .params import load_checkpoint
 
 
 def get_model_cls(name: str):
+    from ..models.asr import Paraformer
+    from ..models.punctuation import CTTransformerPunc
     from ..models.separation import MossFormer2
+    from ..models.vad import FsmnVADNet
 
-    models = {"MossFormer2": MossFormer2}
+    models = {"MossFormer2": MossFormer2, "Paraformer": Paraformer,
+              "CTTransformerPunc": CTTransformerPunc, "FsmnVADNet": FsmnVADNet}
     if name not in models:
         raise KeyError(f"model {name!r} is not ported; ported: {sorted(models)}")
     return models[name]

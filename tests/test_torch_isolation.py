@@ -2,8 +2,9 @@
 
 The machine with the card has PyTorch and no jax or flax, so the port and
 chip_smoke.py must import and run with jax, flax and the JAX package
-unimportable. A separator path that does not exist must raise, and the
-ported loudness must agree with the JAX package's host meter.
+unimportable: the separator and the ASR stage on the shipped checkpoints.
+A checkpoint path that does not exist must raise, and the ported loudness
+must agree with the JAX package's host meter.
 """
 
 import os
@@ -52,6 +53,47 @@ def test_port_and_chip_smoke_run_without_jax():
                           text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED_OK" in proc.stdout
+
+
+_BLOCKED_ASR = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    from chip_smoke import synth_utterance
+    from targetdiarization_tpu_torch.processors.asr import ASRProcessor
+    ap = ASRProcessor(vad_model="checkpoints/vad-bootstrap", asr_model="checkpoints/asr-bootstrap",
+                      punc_model="checkpoints/punc-bootstrap", device="cpu")
+    audio, _ = synth_utterance("天地人日月", np.random.default_rng(0))
+    res = ap.asr_detection(audio)[0]
+    assert res["text"] and len(res["timestamp"]) >= 1, res
+    assert ap.vad_detection(audio) and ap.punctuation_restore("天地人")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"))
+    assert not leaked, leaked
+    print("ASR_ISOLATED_OK", res["text"])
+""")
+
+
+def test_asr_processor_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_ASR], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ASR_ISOLATED_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("kind", ["vad_model", "asr_model", "punc_model"])
+def test_missing_asr_checkpoint_raises(kind, tmp_path):
+    from targetdiarization_tpu_torch.processors.asr import ASRProcessor
+
+    with pytest.raises(FileNotFoundError, match="not found"):
+        ASRProcessor(**{kind: str(tmp_path / "no-such-checkpoint")}, device="cpu")
 
 
 def test_chip_smoke_without_cuda_fails_on_cuda_not_import():
