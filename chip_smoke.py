@@ -9,9 +9,15 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-Each phase prints one JSON line with `elapsed_s` since the start. The line
-before the last holds every kernel's launches, error and times; the last line
-is `{"ok": true, "device": {...}}`. Any failed check raises, so the script
+Each phase prints one JSON line with `elapsed_s` since the start: the build
+and, where `cuobjdump` exists, the tensor-core instructions of the built
+FFConvM kernels; each kernel against its plain version at the main path's
+shapes and types, with its host-inclusive time (`ms`), its device time from
+20 launches replayed in one CUDA graph (`device_ms`) and its bounds; the
+separator (launch counts, wall times, a profiler breakdown of one call,
+agreement with the plain paths) and the ASR stage. The line before the last
+holds every kernel's launches, error and times; the last line is
+`{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits nonzero and prints no result. It needs CUDA and the repository: with no
 card, or with no port beside it, it fails.
 """
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -71,6 +78,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: `launches` calls captured in one CUDA
+    graph and replayed, so the host's cost per call drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
 def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
@@ -107,21 +143,30 @@ FFCONVM_SHAPES = (  # (name, cin, cout, norm) at 512/24
     ("to_out", 1024, 512, "scalenorm"),
     ("to_u", 256, 256, "layernorm"),
 )
+# (variant, activation type, weights rounded to bf16, tensor-core passes):
+# the float32 engine, the main path (the bf16 engine's promoted float32
+# stream with bf16-rounded weights), and bf16 activations
+FFCONVM_VARIANTS = (("float32", "float32", False, 3), ("main", "float32", True, 2),
+                    ("bfloat16", "bfloat16", True, 1))
 
 
 def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
     import torch
 
-    from targetdiarization_tpu_torch.ops.kernels.ffconvm import TAPS, ffconvm, ffconvm_plain
+    from targetdiarization_tpu_torch.ops.kernels.ffconvm import (TAPS, ffconvm, ffconvm_plain,
+                                                                 prepare_ffconvm)
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, cin, cout, norm in FFCONVM_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            def rnd(*shape, scale=1.0):
-                return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+        for variant, dname, bf16_weights, passes in FFCONVM_VARIANTS:
+            dtype = getattr(torch, dname)
 
-            x = rnd(batch, t, cin)
+            def rnd(*shape, scale=1.0):
+                v = torch.randn(*shape, generator=gen, device="cuda") * scale
+                return (v.to(torch.bfloat16) if bf16_weights else v).to(dtype)
+
+            x = torch.randn(batch, t, cin, generator=gen, device="cuda").to(dtype)
             na = rnd(1, scale=0.3) + 1 if norm == "scalenorm" else rnd(cin, scale=0.1) + 1
             nb = torch.zeros(1, device="cuda", dtype=dtype) if norm == "scalenorm" \
                 else rnd(cin, scale=0.1)
@@ -129,28 +174,89 @@ def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
             b = rnd(cout, scale=0.1)
             dwk = rnd(TAPS, 1, cout, scale=0.2)
             args = (x, na, nb, w, b, dwk, norm)
-            got = ffconvm(*args)
+            ops = prepare_ffconvm(na, nb, w, b, dwk, norm, dtype)
+            if (ops.w_lo is None) != bf16_weights:
+                raise AssertionError(f"ffconvm {name} {variant}: W_lo is "
+                                     f"{'absent' if ops.w_lo is None else 'present'}")
+            got = ffconvm(*args, prepared=ops)
             want = ffconvm_plain(*args)
             torch.cuda.synchronize()
             err, rel = rel_err(got, want)
-            dname = str(dtype).split(".")[1]
             isz = x.element_size()
             flops = 2.0 * batch * t * cout * (cin + TAPS + 1)
             nbytes = isz * (batch * t * (cin + cout) + cin * cout + cout * (TAPS + 1) + 2 * cin)
-            bound_ms, bound_by = bound(flops, nbytes, dname)
-            row = {"shape": name, "dtype": dname, "B": batch, "T": t, "cin": cin,
-                   "cout": cout, "norm": norm, "flops": flops, "bytes": nbytes,
+            fma_bound_ms, fma_by = bound(flops, nbytes, "float32")
+            # the design's least time: its bf16 tensor-core passes, the taps
+            # on the float32 units, or the bytes, whichever is longest
+            tc_ms = passes * 2.0 * batch * t * cout * cin / PEAK_FLOPS["bfloat16"] * 1e3
+            taps_ms = 2.0 * batch * t * cout * (TAPS + 1) / PEAK_FLOPS["float32"] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = max(tc_ms, taps_ms, bytes_ms)
+            xm = x.reshape(-1, cin).float()
+            wt = w.float().t().contiguous()
+            row = {"shape": name, "variant": variant, "dtype": dname,
+                   "weights": "bf16-exact" if bf16_weights else "float32",
+                   "tensor_core_passes": passes, "B": batch, "T": t, "cin": cin, "cout": cout,
+                   "norm": norm, "flops": flops, "bytes": nbytes,
                    "max_abs_err": err, "rel_err": rel,
-                   "ms": time_ms(lambda: ffconvm(*args)),
+                   "ms": time_ms(lambda: ffconvm(*args, prepared=ops)),
+                   "device_ms": graph_ms(lambda: ffconvm(*args, prepared=ops)),
                    "plain_ms": time_ms(lambda: ffconvm_plain(*args), iters=5),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if bytes_ms >= max(tc_ms, taps_ms) else "operations",
+                   "fma_bound_ms": fma_bound_ms, "fma_bound_by": fma_by,
+                   "tensor_core_ms": tc_ms, "taps_ms": taps_ms, "bytes_ms": bytes_ms,
+                   "matmul_ms": time_ms(lambda: torch.matmul(xm, wt)),
+                   "library_ms": None}
             emit("ffconvm", **row)
             if not rel <= TOL[dname]:
-                raise AssertionError(f"ffconvm {name} {dname}: kernel vs plain rel err "
+                raise AssertionError(f"ffconvm {name} {variant}: kernel vs plain rel err "
                                      f"{rel:.3g} > {TOL[dname]}")
             rows.append(row)
-            del x, w, got, want
+            del x, w, got, want, xm, wt, ops
+    pair = [r for r in rows if r["variant"] == "main"]
+    emit("ffconvm_pair", variant="main", calls="to_hidden + to_qk + to_out + 2 x to_u",
+         ms=sum(r["ms"] * (2 if r["shape"] == "to_u" else 1) for r in pair),
+         device_ms=sum(r["device_ms"] * (2 if r["shape"] == "to_u" else 1) for r in pair))
     return rows
+
+
+def ffconvm_build_report() -> dict:
+    """Diagnostics of the built FFConvM kernels: registers and spills from
+    ptxas's report of the build, and the tensor-core instructions in the
+    library by cuobjdump where the toolkit has it (the kernel's wgmma shows
+    as HGMMA). A missing tool is said, not skipped silently."""
+    from targetdiarization_tpu_torch.ops.kernels import _build
+
+    report: dict = {}
+    fn = None
+    log = _build.ptxas_log(_build.library_path())
+    lines = open(log).read().splitlines() if os.path.exists(log) else []
+    for line in lines:
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "ffconvm_kernel" in line else None
+        elif fn and ("Used" in line or "spill" in line):
+            report.setdefault(fn, {}).setdefault("ptxas", []).append(line.split(":")[-1].strip())
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    fn = None
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", _build.library_path()], capture_output=True,
+                              text=True, timeout=300).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                fn = fn if "ffconvm_kernel" in fn else None
+                if fn:
+                    report.setdefault(fn, {})["sass"] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+            elif fn:
+                counts = report[fn]["sass"]
+                for op in counts:
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[op] += 1
+    emit("ffconvm_build", ptxas_log=log if lines else None,
+         cuobjdump=tool if os.path.exists(tool) else f"{tool} not found: no instruction counts",
+         kernels=report)
+    return report
 
 
 def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
@@ -186,6 +292,7 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
                "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(lambda: flash_gated(*args)),
+               "device_ms": graph_ms(lambda: flash_gated(*args)),
                "plain_ms": time_ms(lambda: flash_gated_plain(*args), iters=5),
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         emit("flash_gated", **row)
@@ -209,7 +316,7 @@ def check_dwconv() -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv, dwconv_plain
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv, dwconv_plain, prepare_taps
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -217,10 +324,11 @@ def check_dwconv() -> list[dict]:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(batch, t, c * m, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(k, m, c, generator=gen, device="cuda") * 0.2).to(dtype)
-            args = (x, w, dil, pad_l, pad_r)
+            # the taps as the modules hold them, made once (`prepare_taps`)
+            args = (x, prepare_taps(w), dil, pad_l, pad_r)
             before = dwconv.launches
             got = dwconv(*args)
-            want = dwconv_plain(*args)
+            want = dwconv_plain(x, w, dil, pad_l, pad_r)
             if dwconv.launches != before + 1:
                 raise AssertionError("dwconv did not launch its kernel")
             torch.cuda.synchronize()
@@ -234,12 +342,29 @@ def check_dwconv() -> list[dict]:
             flops = 2.0 * batch * t_out * c * k * m  # float32 FMA work in both types
             nbytes = isz * (batch * t * c * m + batch * t_out * c + k * m * c)
             bound_ms, bound_by = bound(flops, nbytes, "float32")
+            # host-inclusive times of back-to-back calls, library and kernel in
+            # turns (library, kernel, kernel, library); at the small shapes the
+            # host's cost per call sets both, so five rounds and the medians
+            small = t * c * m < 1_000_000
+            iters, rounds = (200, 5) if small else (20, 1)
+
+            def library():
+                return F.conv1d(xt, wt, dilation=dil, groups=c)
+
+            kern_ms, lib_ms = [], []
+            for _ in range(rounds):
+                lib_ms.append(time_ms(library, iters=iters))
+                kern_ms += [time_ms(lambda: dwconv(*args), iters=iters) for _ in range(2)]
+                lib_ms.append(time_ms(library, iters=iters))
             row = {"shape": name, "dtype": dname, "B": batch, "T": t, "K": k, "m": m, "C": c,
                    "dilation": dil, "pads": [pad_l, pad_r], "flops": flops, "bytes": nbytes,
                    "max_abs_err": err, "rel_err": rel,
-                   "ms": time_ms(lambda: dwconv(*args)),
-                   "plain_ms": time_ms(lambda: dwconv_plain(*args)),
-                   "library_ms": time_ms(lambda: F.conv1d(xt, wt, dilation=dil, groups=c)),
+                   "ms": statistics.median(kern_ms), "ms_range": [min(kern_ms), max(kern_ms)],
+                   "device_ms": graph_ms(lambda: dwconv(*args)),
+                   "plain_ms": time_ms(lambda: dwconv_plain(x, w, dil, pad_l, pad_r)),
+                   "library_ms": statistics.median(lib_ms),
+                   "library_ms_range": [min(lib_ms), max(lib_ms)],
+                   "library_device_ms": graph_ms(library),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit("dwconv", **row)
             if not rel <= TOL[dname]:
@@ -287,6 +412,7 @@ def check_flash_group(batch: int = 2, n_groups: int = 79, g: int = 256, d: int =
                "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(lambda: flash_group_attention(*args)),
+               "device_ms": graph_ms(lambda: flash_group_attention(*args)),
                "plain_ms": time_ms(lambda: flash_group_plain(*args), iters=5),
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         emit("flash_group", **row)
@@ -309,10 +435,16 @@ def plain_kernels():
     from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm_plain
     from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated_plain
 
+    def ffconvm_plain_call(*args, prepared=None):
+        return ffconvm_plain(*args)
+
     stack = ExitStack()
-    stack.enter_context(mock.patch.object(separation, "ffconvm", ffconvm_plain))
+    stack.enter_context(mock.patch.object(separation, "ffconvm", ffconvm_plain_call))
     stack.enter_context(mock.patch.object(separation, "flash_gated", flash_gated_plain))
-    stack.enter_context(mock.patch.object(dwconv_op, "dwconv", dwconv_plain))
+    def dwconv_plain_call(x, kernel, *args):
+        return dwconv_plain(x, getattr(kernel, "weight", kernel), *args)
+
+    stack.enter_context(mock.patch.object(dwconv_op, "dwconv", dwconv_plain_call))
     return stack
 
 
@@ -386,6 +518,38 @@ def run_clips(ap, clips: dict, label: str) -> dict:
     return outs
 
 
+def profile_call(fn, label: str, top: int = 10) -> None:
+    """A diagnostic line: one call under torch.profiler, its device time by
+    kernel name (the `top` largest), the sum of all kernel time, and that
+    sum's share of the call's host-clock time (the rest is the device
+    idle, waiting on the host). Wall time here includes the profiler's own
+    overhead. Where the profiler records no device time, the line says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = []
+    for ev in prof.key_averages():  # device-side events only (kernels, copies)
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    emit("profile", path=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms if wall_ms else None,
+         top=[{"ms": ms, "count": n, "name": name[:90]} for ms, n, name in rows[:top]],
+         note=None if rows else "the profiler recorded no device time")
+
+
 def check_slice() -> dict:
     import torch
 
@@ -396,9 +560,21 @@ def check_slice() -> dict:
     ap = AudioProcessor(CHECKPOINT, device="cuda")
     if not ap.is_separate_speaker or ap.separator.compute_dtype != torch.bfloat16:
         raise AssertionError("the 512/24 separator did not load in bfloat16 on the card")
-    layers = len(ap.separator.model.mask_net.layers)
+    net = ap.separator.model.mask_net
+    layers = len(net.layers)
+    # the JAX model's types: bf16 up to the bottleneck, then a float32
+    # stream from bf16-rounded weights, so every FFConvM runs two passes
+    ops = [m.kernel_ops for m in net.layers.modules() if hasattr(m, "kernel_ops")]
+    types = {"bottleneck": str(net.bottleneck.weight.dtype),
+             "layer_params": sorted({str(p.dtype) for p in net.layers.parameters()}),
+             "ffconvm_operands": sorted({str(o.dtype) for o in ops}),
+             "ffconvm_w_lo": sum(o.w_lo is not None for o in ops)}
     emit("load", checkpoint=os.path.relpath(CHECKPOINT, ROOT), layers=layers,
-         load_s=time.time() - t)
+         load_s=time.time() - t, **types)
+    if types["bottleneck"] != "torch.bfloat16" or types["layer_params"] != ["torch.float32"] \
+            or types["ffconvm_operands"] != ["torch.float32"] or types["ffconvm_w_lo"] \
+            or len(ops) != 5 * layers:
+        raise AssertionError(f"the bf16 separator does not compute in the JAX types: {types}")
     ap.separate_speaker(clips["3s"][:SR], SR)  # warm-up: cuBLAS and cuDNN set-up
 
     # the main path, counted: one forward per call (the 12 s clip is two
@@ -413,6 +589,9 @@ def check_slice() -> dict:
     if launches != want:
         raise AssertionError(f"kernel launches {launches} on the separator path, want {want}")
 
+    profile_call(lambda: ap.separate_speaker(clips["12s"], SR), "bf16 kernels, 12 s clip")
+    with plain_kernels():
+        plain_bf = run_clips(ap, clips, "bf16 plain")
     ap32 = AudioProcessor(CHECKPOINT, device="cuda", compute_dtype="float32")
     kern32 = run_clips(ap32, clips, "f32 kernels")
     with plain_kernels():
@@ -420,8 +599,14 @@ def check_slice() -> dict:
     for name in clips:
         f32 = [si_sdr(kern32[name][s], plain32[name][s]) for s in range(2)]
         bf16 = [si_sdr(main[name][s], plain32[name][s]) for s in range(2)]
+        # both compute in float32 from the same bf16-rounded weights
+        bf16_plain = [si_sdr(main[name][s], plain_bf[name][s]) for s in range(2)]
         emit("agreement", clip=name, si_sdr_f32_kernels_vs_plain=f32,
+             si_sdr_bf16_kernels_vs_bf16_plain=bf16_plain,
              si_sdr_bf16_kernels_vs_f32_plain=bf16)
+        if min(bf16_plain) < 40.0:
+            raise AssertionError(f"{name}: bf16 kernel path vs bf16 plain SI-SDR "
+                                 f"{bf16_plain} < 40 dB")
         if min(f32) < 40.0:
             raise AssertionError(f"{name}: f32 kernel path vs plain SI-SDR {f32} < 40 dB")
         if min(bf16) < 10.0:
@@ -692,46 +877,61 @@ def check_asr() -> dict:
 
 
 def kernel_line(rows: dict, path_launches: dict) -> dict:
-    """One entry per kernel, in bf16 (the main path's type): ffconvm and
-    flash_gated summed over one 512/24 layer pair's calls at the 160k
-    bucket (B 2, T 20224), dwconv over the pair's two FSMN convs, and
-    flash_group at the gated kernel's shape. The bound is that of the
-    calls taken together; `launches` sums the main-path runs of both
-    slices, `launches_by_path` splits them."""
+    """One entry per kernel, in the type the main path calls it in: the
+    bf16 engine's promoted float32 stream, so ffconvm on float32
+    activations with bf16-exact weights (two tensor-core passes) and
+    flash_gated and the separator's dwconv in float32, each summed over one
+    512/24 layer pair's calls at the 160k bucket (B 2, T 20224);
+    flash_group, which no model calls, at the gated kernel's shape in bf16.
+    The bound is that of the calls taken together (for ffconvm the larger
+    of its tensor-core passes, its taps on the float32 units and its
+    bytes; `fma_bound_ms` is the same work on the float32 units alone);
+    `launches` sums the main-path runs of both slices, `launches_by_path`
+    splits them."""
     per_layer = {"to_hidden": 1, "to_qk": 1, "to_out": 1, "to_u": 2,  # to_v = to_u's shape
                  "separator conv0": 1, "separator conv1": 1}
 
-    def entry(name, source, replaces, kind, weights, peak, per):
-        bf = [(r, weights(r)) for r in rows[kind] if r["dtype"] == "bfloat16" and weights(r)]
-        bound_ms, bound_by = bound(sum(r["flops"] * w for r, w in bf),
-                                   sum(r["bytes"] * w for r, w in bf), peak)
-        library = [r["library_ms"] for r, _ in bf]
+    def entry(name, source, replaces, kind, weight, dtype, per, peak=None):
+        sel = [(r, weight(r)) for r in rows[kind] if weight(r)]
+
+        def total(key):
+            return sum(r[key] * w for r, w in sel)
+
+        if peak is None:  # ffconvm: the design's bound, its three parts summed
+            ops_ms = max(total("tensor_core_ms"), total("taps_ms"))
+            bound_ms = max(ops_ms, total("bytes_ms"))
+            bound_by = "operations" if ops_ms >= total("bytes_ms") else "bytes"
+            extra = {"fma_bound_ms": bound(total("flops"), total("bytes"), "float32")[0]}
+        else:
+            bound_ms, bound_by = bound(total("flops"), total("bytes"), peak)
+            extra = {}
+        library = [r["library_ms"] for r, _ in sel]
         by_path = {p: n[name] for p, n in path_launches.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
-                "max_abs_err": max(r["max_abs_err"] for r in rows[kind]),
-                "ms": sum(r["ms"] * w for r, w in bf),
-                "plain_ms": sum(r["plain_ms"] * w for r, w in bf),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None if None in library else sum(
-                    lib * w for lib, (_, w) in zip(library, bf)),
-                "dtype": "bfloat16", "per": per}
+                "max_abs_err": max(r["max_abs_err"] for r, _ in sel),
+                "ms": total("ms"), "device_ms": total("device_ms"),
+                "plain_ms": total("plain_ms"), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None if None in library else total("library_ms"),
+                **extra, "dtype": dtype, "per": per}
 
     pair = "one 512/24 layer pair, B 2, T 20224"
     return {"kernels": [
         entry("ffconvm", "targetdiarization_tpu_torch/csrc/ffconvm.cu",
               "targetdiarization_tpu/ops/pallas/ffconvm.py:117", "ffconvm",
-              lambda r: per_layer[r["shape"]], "bfloat16", pair),
+              lambda r: per_layer[r["shape"]] if r["variant"] == "main" else 0,
+              "float32, bf16-exact weights", pair),
         entry("flash_gated", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
-              "targetdiarization_tpu/ops/pallas/flash.py:97", "flash_gated", lambda r: 1,
-              "bfloat16", pair),
+              "targetdiarization_tpu/ops/pallas/flash.py:97", "flash_gated",
+              lambda r: r["dtype"] == "float32", "float32", pair, "float32"),
         entry("dwconv", "targetdiarization_tpu_torch/csrc/dwconv.cu",
               "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
-              lambda r: per_layer.get(r["shape"], 0), "float32",
-              pair + " (FSMN conv0 + conv1; float32 FMA work)"),
+              lambda r: per_layer.get(r["shape"], 0) if r["dtype"] == "float32" else 0,
+              "float32", pair + " (FSMN conv0 + conv1; float32 FMA work)", "float32"),
         entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
-              "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group", lambda r: 1,
-              "bfloat16", "B 2, G 79, g 256, d 128, e 1024 (public op; no model calls it)"),
+              "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group",
+              lambda r: r["dtype"] == "bfloat16", "bfloat16",
+              "B 2, G 79, g 256, d 128, e 1024 (public op; no model calls it)", "bfloat16"),
     ]}
 
 
@@ -741,6 +941,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = environment()
+    ffconvm_build_report()
     rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
             "dwconv": check_dwconv(), "flash_group": check_flash_group()}
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr()}

@@ -39,6 +39,7 @@ constexpr int kCh = 32;                         // output channels of a block
 constexpr int kRowGroups = kThreads / kCh;      // 8
 constexpr int kRowsPerThread = kRows / kRowGroups;
 constexpr size_t kMaxSmem = 232448;             // a block's limit on sm_90
+constexpr size_t kDefaultSmem = 48 * 1024;      // usable without the opt-in attribute
 
 size_t smem_bytes(int k, int m, int dil) {
     const size_t rows = kRows + static_cast<size_t>(k - 1) * dil;
@@ -104,10 +105,11 @@ int launch(const void* x, const void* w, void* out, int batch, int t_in, int t_o
     const size_t smem = smem_bytes(k, m, dil);
     if (smem > kMaxSmem || batch <= 0 || t_out <= 0 || c <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(dwconv_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (smem > kDefaultSmem) {  // the opt-in costs host time: only when the tile needs it
+        const cudaError_t err = cudaFuncSetAttribute(
+            dwconv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
     const dim3 grid((t_out + kRows - 1) / kRows, (c + kCh - 1) / kCh, batch);
     dwconv_kernel<T><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), t_in, t_out,
@@ -117,11 +119,21 @@ int launch(const void* x, const void* w, void* out, int batch, int t_in, int t_o
 
 }  // namespace
 
-extern "C" int td_dwconv(const void* x, const void* w, void* out, int batch, int t_in,
-                         int t_out, int c, int m, int k, int dil, int pad_l, int is_bf16,
-                         void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16)
+// One block of int64 arguments, so that a call from Python converts one
+// pointer instead of thirteen values (at the ASR path's small shapes the
+// host's cost per call sets the time): x (B, T, C*m), w (K, m, C) and out
+// (B, T_out, C) as addresses, then batch, t_in, t_out, c, m, k, dil, pad_l,
+// is_bf16, and the stream.
+extern "C" int td_dwconv(const long long* args) {
+    const void* x = reinterpret_cast<const void*>(args[0]);
+    const void* w = reinterpret_cast<const void*>(args[1]);
+    void* out = reinterpret_cast<void*>(args[2]);
+    const int batch = static_cast<int>(args[3]), t_in = static_cast<int>(args[4]);
+    const int t_out = static_cast<int>(args[5]), c = static_cast<int>(args[6]);
+    const int m = static_cast<int>(args[7]), k = static_cast<int>(args[8]);
+    const int dil = static_cast<int>(args[9]), pad_l = static_cast<int>(args[10]);
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(args[12]);
+    if (args[11])
         return launch<__nv_bfloat16>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
     return launch<float>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
 }

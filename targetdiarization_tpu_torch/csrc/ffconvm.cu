@@ -9,40 +9,62 @@
 // In-array rows that the model masks still contribute silu(bias), as in the
 // TPU kernel; only rows outside the array are zero.
 //
-// What bounds it on an H100: at the main path's widths (cin 256..1024,
-// cout 128..2048, T up to 20224, B 2) the dense product is the work.
-// In bf16 the wider projections (512->2048, 1024->512) are bound by
-// tensor-core operations and the narrow ones (512->128, 256->256) by
-// the bytes of x and out. In f32 every shape is bound by the 67 TFLOP/s
-// of the non-tensor-core float units.
+// What bounds it on an H100: the dense product. On the float32 FMA units
+// (67 TFLOP/s) it bounds every main-path shape; on the tensor cores
+// (989 TFLOP/s bf16) the wide projections (512->2048, 1024->512) stay
+// bound by operations and the narrow ones (512->128, 256->256) by the
+// bytes of x and out.
 //
-// Design, simple first: one block of 256 threads per (112 output rows,
-// 64 output channels). It computes h for its rows plus the 16 halo rows
-// (128 rows) with a tiled float32 FMA product streamed over cin in chunks
-// of 32, keeps h in shared memory as f32 and runs the 17 taps from there,
-// so neither y nor h ever goes to device memory. The norm statistics come
-// from a pre-pass (one warp per row, 8 bytes per row). The product does
-// not use the tensor cores yet (no wgmma, no TMA): that is the next step
-// for the bf16 path.
+// Design: the product runs on the tensor cores (wgmma, sm_90a), with
+// float32 kept through a bf16 split rather than TF32:
+//   W = W_hi + W_lo, both bf16, prepared once by the caller; W_lo is
+//   passed only when W is not bf16-exact (on the main path it is);
+//   for float32 x the A operand is split in the loader, y = y_hi + y_lo;
+//   acc = y_hi.W_hi + y_lo.W_hi (+ y_hi.W_lo), f32 accumulators.
+// Two passes keep about 16 bits of y's mantissa; TF32 keeps 10. For
+// bfloat16 x, y is normalised and rounded to bf16 as the TPU kernel does,
+// and one pass y.W_hi runs.
+//
+// One block of three warpgroups (384 threads) computes 192 h rows (176
+// output rows plus the 16 halo rows) by 128 output channels. Each
+// warpgroup owns 64 rows and issues m64n128k16 wgmma from shared memory.
+// cin streams in chunks of 64 through a two-stage ring: W's chunk comes by
+// cp.async, x's chunk through the threads, which normalise it (LayerNorm
+// from the stats pre-pass; ScaleNorm of bf16 x), split it and store it in
+// the 128-byte-swizzled K-major layout that wgmma reads. The next chunk is
+// staged while the current one's products run (one barrier per chunk).
+// ScaleNorm of float32 x is one scale per row, so it moves to the epilogue
+// and the loader only splits raw x. The epilogue applies scale, bias, SiLU
+// and the row mask in registers, writes h as f32 into shared memory over
+// the ring, and runs the 17 taps and the residual from there: each thread
+// takes one channel and 8 output rows at a time from a 24-row register
+// window. Neither y nor h goes to device memory; out is stored once.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kGroups = 3;                      // consumer warpgroups
+constexpr int kThreads = 128 * kGroups;         // 384
 constexpr int kTaps = 17;
-constexpr int kHalo = (kTaps - 1) / 2;       // 8 rows each side
-constexpr int kRows = 128;                    // h rows of a block
-constexpr int kOutRows = kRows - (kTaps - 1); // 112 output rows
-constexpr int kCols = 64;                     // output channels of a block
-constexpr int kChunk = 32;                    // cin per shared-memory stage
-constexpr int kLdA = kRows + 4;
-constexpr int kLdB = kCols + 4;
+constexpr int kHalo = (kTaps - 1) / 2;          // 8 rows each side
+constexpr int kRows = 64 * kGroups;             // 192 h rows of a block
+constexpr int kOutRows = kRows - 2 * kHalo;     // 176 output rows
+constexpr int kCols = 128;                      // output channels of a block
+constexpr int kK = 64;                          // cin per stage: one 128-byte bf16 row
+constexpr int kLdH = kCols + 8;                 // h row stride (floats), conflict-free float2 stores
+constexpr int kATile = kRows * kK * 2;          // 24576 bytes
+constexpr int kBTile = kCols * kK * 2;          // 16384 bytes
+constexpr int kStage = 2 * kATile + 2 * kBTile; // A_hi, A_lo, B_hi, B_lo
+constexpr int kSmem = 2 * kStage + 1024;        // two stages, plus 1024-byte alignment
+static_assert(kRows * kLdH * 4 <= 2 * kStage, "h must fit over the ring");
+static_assert(kOutRows % 8 == 0, "the conv takes 8 output rows at a time");
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) row_stats_kernel(
+__global__ void __launch_bounds__(256) row_stats_kernel(
     const T* __restrict__ x, float2* __restrict__ stats, int rows, int cin,
     int layernorm, float eps, float inv_d) {
     const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -72,153 +94,324 @@ __global__ void __launch_bounds__(kThreads) row_stats_kernel(
     if (lane == 0) stats[row] = make_float2(mean, 1.0f / sqrtf(q / cin + eps));
 }
 
-struct GemmTiles {
-    float a[kChunk][kLdA];  // normalized x, k-major
-    float b[kChunk][kLdB];  // W^T chunk, k-major
-};
-union FfSmem {
-    GemmTiles g;
-    float h[kRows][kCols];
-};
+// ---- Hopper primitives ----
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ffconvm_kernel(
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the leading offset is unused in this mode).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// acc (64 x 128 f32 over the warpgroup) += A (64 x 16) . B (128 x 16)^T
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from touching the accumulators before the wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// generic-proxy writes to shared memory made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) = hi + lo with hi, lo bf16 pairs
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    hi = *reinterpret_cast<uint32_t*>(&h);
+    lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// T float: the A operand is split (two passes); kLoB: W_lo is given (one more pass)
+template <typename T, bool kLoB>
+__global__ void __launch_bounds__(kThreads, 1) ffconvm_kernel(
     const T* __restrict__ x, const float2* __restrict__ stats,
-    const T* __restrict__ na, const T* __restrict__ nb,
-    const T* __restrict__ w, const T* __restrict__ bias,
-    const T* __restrict__ dwk, T* __restrict__ out,
+    const float* __restrict__ na, const float* __restrict__ nb,
+    const __nv_bfloat16* __restrict__ w_hi, const __nv_bfloat16* __restrict__ w_lo,
+    const float* __restrict__ bias, const float* __restrict__ dwk, T* __restrict__ out,
     int t_len, int cin, int cout, int layernorm) {
-    __shared__ __align__(16) FfSmem sm;
+    constexpr bool kSplitA = std::is_same<T, float>::value;
+    // A loader: float32 x as 16 slots of 4 k per row, bf16 x as 8 slots of 8
+    constexpr int kSlots = kSplitA ? 16 : 8;
+    constexpr int kRowStep = kThreads / kSlots;     // 24 or 48
+    constexpr int kRowsPer = kRows / kRowStep;      // 8 or 4
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
     const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    const int n0 = blockIdx.x * kCols;
+    const int t0 = blockIdx.y * kOutRows;
     const int b = blockIdx.z;
-    const int t0 = blockIdx.x * kOutRows;
-    const int n0 = blockIdx.y * kCols;
     const T* xb = x + static_cast<size_t>(b) * t_len * cin;
+    const float2* sb = stats + static_cast<size_t>(b) * t_len;
+    const int nk = (cin + kK - 1) / kK;
+    const float g = na[0];
 
-    // loader of the A tile: one h row per thread, 16 of the chunk's 32 k
-    const int ar = tid % kRows;
-    const int ak = (tid / kRows) * 16;
-    const int at = t0 - kHalo + ar;
-    const bool a_ok = at >= 0 && at < t_len;
-    float s0 = 1.f, s1 = 0.f;
-    if (a_ok) {
-        const float2 st = stats[static_cast<size_t>(b) * t_len + at];
-        s0 = st.x;
-        s1 = st.y;
+    const int slot = tid % kSlots;
+    const int arow = tid / kSlots;
+    float2 st[kRowsPer];  // LayerNorm (mean, rstd) or ScaleNorm (denom, 0) of the loader's rows
+#pragma unroll
+    for (int i = 0; i < kRowsPer; ++i) {
+        const int t = t0 - kHalo + arow + kRowStep * i;
+        st[i] = (t >= 0 && t < t_len) ? sb[t] : make_float2(1.f, 0.f);
     }
-    const float g = layernorm ? 0.f : td::to_f(na[0]);
-    const T* xrow = xb + static_cast<size_t>(a_ok ? at : 0) * cin;
-    // loader of the B tile: one output channel per thread, 8 of the 32 k
-    const int bn = tid % kCols;
-    const int bk = (tid / kCols) * 8;
-    const bool b_ok = n0 + bn < cout;
-    const T* wrow = w + static_cast<size_t>(b_ok ? n0 + bn : 0) * cin;
 
-    // each thread owns 8 rows x 4 channels of the product
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[8][4];
+    auto stage_a = [&](int kc, int s) {
+        uint8_t* ah = smem + s * kStage;
+        if constexpr (kSplitA) {
+            const int k = kc * kK + slot * 4;
+            float4 ga = make_float4(1.f, 1.f, 1.f, 1.f), gb = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (layernorm && k < cin) {
+                ga = *reinterpret_cast<const float4*>(na + k);
+                gb = *reinterpret_cast<const float4*>(nb + k);
+            }
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+            for (int i = 0; i < kRowsPer; ++i) {
+                const int r = arow + kRowStep * i;
+                const int t = t0 - kHalo + r;
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (t >= 0 && t < t_len && k < cin)
+                    v = __ldg(reinterpret_cast<const float4*>(xb + static_cast<size_t>(t) * cin + k));
+                if (layernorm) {
+                    v.x = (v.x - st[i].x) * st[i].y * ga.x + gb.x;
+                    v.y = (v.y - st[i].x) * st[i].y * ga.y + gb.y;
+                    v.z = (v.z - st[i].x) * st[i].y * ga.z + gb.z;
+                    v.w = (v.w - st[i].x) * st[i].y * ga.w + gb.w;
+                }
+                uint32_t h0, h1, l0, l1;
+                split_bf16(v.x, v.y, h0, l0);
+                split_bf16(v.z, v.w, h1, l1);
+                const int off = r * 128 + (((slot >> 1) ^ (r & 7)) << 4) + ((slot & 1) << 3);
+                *reinterpret_cast<uint2*>(ah + off) = make_uint2(h0, h1);
+                *reinterpret_cast<uint2*>(ah + kATile + off) = make_uint2(l0, l1);
+            }
+        } else {
+            const int k = kc * kK + slot * 8;
+            float ga[8], gb[8];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+            for (int e = 0; e < 8; ++e) {
+                ga[e] = (layernorm && k < cin) ? na[k + e] : g;
+                gb[e] = (layernorm && k < cin) ? nb[k + e] : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < kRowsPer; ++i) {
+                const int r = arow + kRowStep * i;
+                const int t = t0 - kHalo + r;
+                uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+                if (t >= 0 && t < t_len && k < cin)
+                    raw = __ldg(reinterpret_cast<const uint4*>(xb + static_cast<size_t>(t) * cin + k));
+                const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+                float y[8];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const float v = __bfloat162float(xv[e]);
+                    y[e] = layernorm ? (v - st[i].x) * st[i].y * ga[e] + gb[e] : v / st[i].x * ga[e];
+                }
+                const int off = r * 128 + ((slot ^ (r & 7)) << 4);
+                *reinterpret_cast<uint4*>(ah + off) = make_uint4(
+                    pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                    pack_bf16(y[6], y[7]));
+            }
+        }
+    };
 
-    for (int k0 = 0; k0 < cin; k0 += kChunk) {
+    auto stage_b = [&](int kc, int s) {
+        const uint32_t bh = smem_u32(smem + s * kStage + 2 * kATile);
+        for (int idx = tid; idx < kCols * 8; idx += kThreads) {
+            const int n = idx >> 3, c = idx & 7;
+            const int gn = n0 + n, gk = kc * kK + c * 8;
+            const bool ok = gn < cout && gk < cin;
+            const size_t src = ok ? static_cast<size_t>(gn) * cin + gk : 0;
+            const uint32_t off = n * 128 + ((c ^ (n & 7)) << 4);
+            cp_async16(bh + off, w_hi + src, ok ? 16 : 0);
+            if constexpr (kLoB) cp_async16(bh + kBTile + off, w_lo + src, ok ? 16 : 0);
+        }
+        cp_async_commit();
+    };
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    stage_b(0, 0);
+    stage_a(0, 0);
+    for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc & 1;
+        cp_async_wait_all();
+        fence_proxy_async();
+        __syncthreads();  // stage s is complete; every warpgroup is done with stage s^1
+        wgmma_fence();
+        const uint32_t ah = smem_u32(smem + s * kStage) + wg * 64 * 128;
+        const uint32_t bh = smem_u32(smem + s * kStage + 2 * kATile);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_m64n128k16(acc, gmma_desc(ah + 32 * j), gmma_desc(bh + 32 * j));
+        if constexpr (kSplitA) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                wgmma_m64n128k16(acc, gmma_desc(ah + kATile + 32 * j), gmma_desc(bh + 32 * j));
+        }
+        if constexpr (kLoB) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                wgmma_m64n128k16(acc, gmma_desc(ah + 32 * j), gmma_desc(bh + kBTile + 32 * j));
+        }
+        wgmma_commit();
+        if (kc + 1 < nk) {  // the next chunk loads while the tensor cores work
+            stage_b(kc + 1, s ^ 1);
+            stage_a(kc + 1, s ^ 1);
+        }
+        wgmma_wait_all();
+        fence_acc(acc);
+    }
+    __syncthreads();  // the ring is free: h goes over it
+
+    // epilogue 1: h = silu(scale * acc + bias), zero outside [0, T), into shared memory
+    float* hs = reinterpret_cast<float*>(smem);
+    {
+        const int lane = tid & 31;
+        const int r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+        const int q2 = (lane & 3) * 2;
+        float sc[2];
+        bool ok[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int t = t0 - kHalo + r0 + 8 * hh;
+            ok[hh] = t >= 0 && t < t_len;
+            sc[hh] = (kSplitA && !layernorm && ok[hh]) ? g / sb[t].x : 1.f;
+        }
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-            const int k = k0 + ak + j;
-            float y = 0.f;
-            if (a_ok && k < cin) {
-                const float xv = td::to_f(xrow[k]);
-                y = layernorm ? (xv - s0) * s1 * td::to_f(na[k]) + td::to_f(nb[k])
-                              : xv / s0 * g;
-                y = td::round_to<T>(y);
+            const int col = 8 * j + q2;
+            const int n = n0 + col;
+            const float b0 = n < cout ? bias[n] : 0.f;
+            const float b1 = n + 1 < cout ? bias[n + 1] : 0.f;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                const float v0 = acc[4 * j + 2 * hh] * sc[hh] + b0;
+                const float v1 = acc[4 * j + 2 * hh + 1] * sc[hh] + b1;
+                *reinterpret_cast<float2*>(hs + (r0 + 8 * hh) * kLdH + col) =
+                    ok[hh] ? make_float2(v0 * td::sigmoid_f(v0), v1 * td::sigmoid_f(v1))
+                           : make_float2(0.f, 0.f);
             }
-            sm.g.a[ak + j][ar] = y;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int k = k0 + bk + j;
-            sm.g.b[bk + j][bn] = (b_ok && k < cin) ? td::to_f(wrow[k]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < kChunk; ++kk) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&sm.g.a[kk][ty * 8]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&sm.g.a[kk][ty * 8 + 4]);
-            const float4 bv = *reinterpret_cast<const float4*>(&sm.g.b[kk][tx * 4]);
-            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bw[c], acc[r][c]);
-        }
-        __syncthreads();
-    }
-
-    // h = silu(acc + bias), zero outside the array; the union reuses the
-    // product's tiles, which the loop's last barrier released
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-        const int row = ty * 8 + r;
-        const int t = t0 - kHalo + row;
-        const bool valid = t >= 0 && t < t_len;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int n = n0 + tx * 4 + c;
-            const float hb = acc[r][c] + (n < cout ? td::to_f(bias[n]) : 0.f);
-            sm.h[row][tx * 4 + c] = valid ? hb * td::sigmoid_f(hb) : 0.f;
         }
     }
     __syncthreads();
 
-    const int cj = tid % kCols;
-    const int n = n0 + cj;
+    // epilogue 2: out = h + 17 taps of h, one channel and 8 rows at a time
+    const int c = tid % kCols;
+    const int n = n0 + c;
     if (n >= cout) return;
     float taps[kTaps];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) taps[k] = td::to_f(dwk[static_cast<size_t>(k) * cout + n]);
+    for (int k = 0; k < kTaps; ++k) taps[k] = dwk[static_cast<size_t>(k) * cout + n];
     T* ob = out + static_cast<size_t>(b) * t_len * cout + n;
-    for (int i = tid / kCols; i < kOutRows; i += kThreads / kCols) {
-        const int t = t0 + i;
-        if (t >= t_len) break;
-        float a = sm.h[i + kHalo][cj];
+    for (int ch = tid / kCols; ch < kOutRows / 8; ch += kGroups) {
+        const int i0 = ch * 8;
+        float w[8 + 2 * kHalo];
 #pragma unroll
-        for (int k = 0; k < kTaps; ++k) a += sm.h[i + k][cj] * taps[k];
-        ob[static_cast<size_t>(t) * cout] = td::Store<T>::from_f(a);
+        for (int u = 0; u < 8 + 2 * kHalo; ++u) w[u] = hs[(i0 + u) * kLdH + c];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int t = t0 + i0 + u;
+            if (t >= t_len) break;
+            float a = w[u + kHalo];
+#pragma unroll
+            for (int k = 0; k < kTaps; ++k) a += w[u + k] * taps[k];
+            ob[static_cast<size_t>(t) * cout] = td::Store<T>::from_f(a);
+        }
     }
 }
 
-template <typename T>
-int launch(const void* x, const void* na, const void* nb, const void* w,
-           const void* bias, const void* dwk, void* stats, void* out, int batch,
-           int t_len, int cin, int cout, int layernorm, float eps, float inv_d,
-           cudaStream_t stream) {
+template <typename T, bool kLoB>
+int launch(const void* x, const float* na, const float* nb, const void* w_hi, const void* w_lo,
+           const float* bias, const float* dwk, float2* stats, void* out, int batch, int t_len,
+           int cin, int cout, int layernorm, float eps, float inv_d, cudaStream_t stream) {
     const int rows = batch * t_len;
-    const int warps_per_block = kThreads / 32;
-    row_stats_kernel<T><<<(rows + warps_per_block - 1) / warps_per_block, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<float2*>(stats), rows, cin, layernorm, eps, inv_d);
+    row_stats_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+        static_cast<const T*>(x), stats, rows, cin, layernorm, eps, inv_d);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((t_len + kOutRows - 1) / kOutRows, (cout + kCols - 1) / kCols, batch);
-    ffconvm_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const float2*>(stats),
-        static_cast<const T*>(na), static_cast<const T*>(nb), static_cast<const T*>(w),
-        static_cast<const T*>(bias), static_cast<const T*>(dwk), static_cast<T*>(out),
-        t_len, cin, cout, layernorm);
+    auto kernel = ffconvm_kernel<T, kLoB>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((cout + kCols - 1) / kCols, (t_len + kOutRows - 1) / kOutRows, batch);
+    kernel<<<grid, kThreads, kSmem, stream>>>(
+        static_cast<const T*>(x), stats, na, nb, static_cast<const __nv_bfloat16*>(w_hi),
+        static_cast<const __nv_bfloat16*>(w_lo), bias, dwk, static_cast<T*>(out), t_len, cin,
+        cout, layernorm);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int td_ffconvm(const void* x, const void* na, const void* nb, const void* w,
-                          const void* bias, const void* dwk, void* stats, void* out,
-                          int batch, int t_len, int cin, int cout, int layernorm,
+// x (B, T, cin) float32 or bfloat16; w_hi, w_lo (cout, cin) bf16, w_lo null
+// when W is bf16-exact (always null for bf16 x); na, nb (cin,) or g (1,),
+// bias (cout,), dwk (17, cout) float32; stats (B*T,) float2 scratch;
+// out (B, T, cout) in x's type. cin and cout multiples of 8.
+extern "C" int td_ffconvm(const void* x, const void* na, const void* nb, const void* w_hi,
+                          const void* w_lo, const void* bias, const void* dwk, void* stats,
+                          void* out, int batch, int t_len, int cin, int cout, int layernorm,
                           float eps, float inv_d, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16)
-        return launch<__nv_bfloat16>(x, na, nb, w, bias, dwk, stats, out, batch, t_len, cin,
-                                     cout, layernorm, eps, inv_d, s);
-    return launch<float>(x, na, nb, w, bias, dwk, stats, out, batch, t_len, cin, cout,
-                         layernorm, eps, inv_d, s);
+    const float* fna = static_cast<const float*>(na);
+    const float* fnb = static_cast<const float*>(nb);
+    const float* fb = static_cast<const float*>(bias);
+    const float* fk = static_cast<const float*>(dwk);
+    float2* st = static_cast<float2*>(stats);
+    if (cin % 8 != 0 || cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (is_bf16) {
+        if (w_lo != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        return launch<__nv_bfloat16, false>(x, fna, fnb, w_hi, w_lo, fb, fk, st, out, batch,
+                                            t_len, cin, cout, layernorm, eps, inv_d, s);
+    }
+    if (w_lo != nullptr)
+        return launch<float, true>(x, fna, fnb, w_hi, w_lo, fb, fk, st, out, batch, t_len, cin,
+                                   cout, layernorm, eps, inv_d, s);
+    return launch<float, false>(x, fna, fnb, w_hi, w_lo, fb, fk, st, out, batch, t_len, cin,
+                                cout, layernorm, eps, inv_d, s);
 }

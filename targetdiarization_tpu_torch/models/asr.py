@@ -22,8 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dwconv import dw_conv1d
+from ..ops.kernels import prepare_kernels
+from ..ops.kernels.dwconv import prepare_taps
 from ..runtime.buckets import BucketLadder, pad_to
-from ..runtime.precision import dequantize_audio, quantize_i16, resolve_compute_dtype
+from ..runtime.precision import (dequantize_audio, promote_after, quantize_i16,
+                                 resolve_compute_dtype)
 from . import features
 from .tokenizer import CharTokenizer
 
@@ -55,6 +58,11 @@ class SANMAttention(nn.Module):
         self.v = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
         self.fsmn = nn.Parameter(torch.zeros(fsmn_kernel, 1, dim)) if memory else None
+        self.fsmn_taps = None
+
+    def prepare_kernel(self):
+        if self.fsmn is not None:
+            self.fsmn_taps = prepare_taps(self.fsmn)
 
     def forward(self, x, mask, context=None):
         # x (B, T, D); mask (B, T). Cross-attention sees every context
@@ -73,7 +81,7 @@ class SANMAttention(nn.Module):
         att = torch.softmax(att, dim=-1)
         out = torch.matmul(att, vh).transpose(1, 2).reshape(b, t, self.dim)
         if context is None:
-            out = out + dw_conv1d(v * mask[..., None], self.fsmn)
+            out = out + dw_conv1d(v * mask[..., None], self.fsmn_taps or self.fsmn)
         return self.out(out)
 
 
@@ -162,8 +170,12 @@ class CIFPredictor(nn.Module):
         alphas = torch.sigmoid(self.alpha(h))[..., 0] * mask
         enc_f, alphas_f = enc.float(), alphas.float()
         b, t = alphas.shape
-        valid = mask.float().sum(dim=1).to(torch.int64)  # exact in any compute type
-        ext = F.one_hot(valid, t + 1).float() * self.tail_threshold
+        # the valid-frame count in the mask's type, as the JAX model sums it:
+        # in bf16 a count above 256 rounds, which moves the tail frame
+        valid = mask.sum(dim=1).to(torch.int64)
+        # a count rounded past T puts the tail nowhere (jax.nn.one_hot's zeros)
+        slots = torch.arange(t + 1, device=mask.device)
+        ext = (slots[None, :] == valid[:, None]).float() * self.tail_threshold
         alphas_f = F.pad(alphas_f, (0, 1)) + ext
         enc_f = F.pad(enc_f, (0, 0, 0, 1))
         tokens, fire_frames, n_tokens = cif_fire(enc_f, alphas_f, self.threshold)
@@ -222,18 +234,6 @@ def fire_frames_to_timestamps(fire_frames, total_frames: int) -> list:
     return out
 
 
-def promote_after(model: nn.Module, first: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """The JAX package's types in a reduced compute type: every weight is
-    rounded to `dtype`, but only `first` computes in it; the float32
-    position table added to its output promotes the stream, and every
-    later layer computes in float32 from the rounded weights."""
-    model.to(dtype)
-    if dtype != torch.float32:
-        model.float()
-        first.to(dtype)
-    return model
-
-
 class ASREngine:
     """Bucketed Paraformer with the reference's result contract:
     [{"text": ..., "timestamp": [[start_ms, end_ms], ...]}]. One synchronous
@@ -247,6 +247,7 @@ class ASREngine:
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         self.model = promote_after(model.to(self.device), model.encoder.in_proj,
                                    self.compute_dtype).eval()
+        prepare_kernels(self.model)
         self.tokenizer = tokenizer or CharTokenizer()
         self.cmvn = None if cmvn is None else tuple(
             torch.as_tensor(np.asarray(a, np.float32), device=self.device) for a in cmvn)

@@ -17,8 +17,8 @@ import torch
 from torch import nn
 
 from ..runtime.buckets import BucketLadder, pad_to
-from ..runtime.precision import resolve_compute_dtype
-from .asr import LN_EPS, promote_after, sinusoid
+from ..runtime.precision import promote_after, resolve_compute_dtype
+from .asr import LN_EPS, sinusoid
 from .tokenizer import CharTokenizer
 
 PUNC_LIST = ["", "，", "。", "？", "、", "！"]  # class 0 = no punctuation
@@ -91,7 +91,7 @@ _TOKEN_LADDER = BucketLadder((16, 32, 64, 128, 256, 512, 1024))
 class PunctuationEngine:
     """Punctuation classes per character, one forward per call (texts
     padded to a token rung), argmax on the device. In a reduced compute
-    type only the embedding is in it (`models.asr.promote_after`)."""
+    type only the embedding is in it (`runtime.precision.promote_after`)."""
 
     def __init__(self, model: CTTransformerPunc, tokenizer: CharTokenizer | None = None,
                  device: str | torch.device = "cuda", compute_dtype: str | None = None):

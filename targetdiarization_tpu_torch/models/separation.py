@@ -16,12 +16,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dwconv import dw_conv1d
-from ..ops.kernels.ffconvm import TAPS, ffconvm, scale_norm
+from ..ops.kernels import prepare_kernels
+from ..ops.kernels.dwconv import prepare_taps
+from ..ops.kernels.ffconvm import TAPS, ffconvm, prepare_ffconvm, scale_norm
 from ..ops.kernels.flash import flash_gated
 from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample_poly_np
 from ..runtime.buckets import BucketLadder
-from ..runtime.precision import resolve_compute_dtype
+from ..runtime.precision import promote_after, resolve_compute_dtype
 
 
 # ---------------- small pieces ----------------
@@ -40,15 +42,16 @@ class ScaleNorm(nn.Module):
 
 
 def masked_global_layer_norm(x, mask, weight, bias, eps: float = 1e-8):
-    """Normalise over (T, C) jointly, counting only mask == 1 frames.
-    Statistics in float32; the result in x's type."""
-    xf = x.float()
-    m = mask.float()[..., None]
+    """Normalise over (T, C) jointly, counting only mask == 1 frames. Op
+    for op the JAX model's formula, so each op computes in the type of its
+    operands as there: a bf16 stream with a bf16 mask rounds every step to
+    bf16 (as XLA does), a float32 stream with a bf16 mask counts frames in
+    bf16 and computes the statistics in float32."""
+    m = mask[..., None]
     denom = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * x.shape[-1], 1.0)
-    mean = (xf * m).sum(dim=(1, 2), keepdim=True) / denom
-    var = ((xf - mean).square() * m).sum(dim=(1, 2), keepdim=True) / denom
-    out = (weight.float() * (xf - mean) / torch.sqrt(var + eps) + bias.float()) * m
-    return out.to(x.dtype)
+    mean = (x * m).sum(dim=(1, 2), keepdim=True) / denom
+    var = ((x - mean).square() * m).sum(dim=(1, 2), keepdim=True) / denom
+    return (weight * (x - mean) / torch.sqrt(var + eps) + bias) * m
 
 
 class GlobalLayerNorm(nn.Module):
@@ -68,7 +71,8 @@ class FFConvM(nn.Module):
     """norm -> Linear -> SiLU -> h + depthwise 17-tap conv of h, in one
     kernel (`ops.kernels.ffconvm`). `norm` is "scalenorm" (FLASH blocks)
     or "layernorm" (the gated FSMN's to_u / to_v). The depthwise kernel
-    keeps the JAX layout (17, 1, dim_out)."""
+    keeps the JAX layout (17, 1, dim_out). `prepare_kernel` makes the
+    kernel's operands once, for the type and card the module has then."""
 
     def __init__(self, dim_in: int, dim_out: int, norm: str = "scalenorm"):
         super().__init__()
@@ -76,13 +80,20 @@ class FFConvM(nn.Module):
         self.norm = ScaleNorm() if norm == "scalenorm" else nn.LayerNorm(dim_in, eps=1e-5)
         self.proj = nn.Linear(dim_in, dim_out)
         self.dwk = nn.Parameter(torch.zeros(TAPS, 1, dim_out))
+        self.kernel_ops = None
+
+    def _norm_params(self):
+        if self.norm_kind == "scalenorm":
+            return self.norm.g, self.norm.g.new_zeros(1)
+        return self.norm.weight, self.norm.bias
+
+    def prepare_kernel(self):
+        self.kernel_ops = prepare_ffconvm(*self._norm_params(), self.proj.weight, self.proj.bias,
+                                          self.dwk, self.norm_kind, self.proj.weight.dtype)
 
     def forward(self, x):
-        if self.norm_kind == "scalenorm":
-            na, nb = self.norm.g, self.norm.g.new_zeros(1)
-        else:
-            na, nb = self.norm.weight, self.norm.bias
-        return ffconvm(x, na, nb, self.proj.weight, self.proj.bias, self.dwk, self.norm_kind)
+        return ffconvm(x, *self._norm_params(), self.proj.weight, self.proj.bias, self.dwk,
+                       self.norm_kind, prepared=self.kernel_ops)
 
 
 def rope_rotate(x, rot_dims: int = 32):
@@ -140,7 +151,7 @@ class FlashBlock(nn.Module):
 
         qq, qk_, lq, lk = group(quad_q), group(quad_k), group(lin_q), group(lin_k)
         vg, ug = group(v), group(u)
-        mg = mask.reshape(b, n_groups, 1, g).contiguous()
+        mg = mask.reshape(b, n_groups, 1, g).to(v.dtype).contiguous()
         # global linear-attention summaries over the valid frames (lin_k is
         # masked), shared by all groups; small, so plain matmuls
         n_valid = torch.clamp_min(mask.sum(dim=-1), 1.0)[:, None, None]
@@ -168,15 +179,21 @@ class DilatedDenseFsmnNet(nn.Module):
         self.in_b = nn.ParameterList([nn.Parameter(torch.zeros(channels)) for _ in range(depth)])
         self.prelu = nn.ParameterList(
             [nn.Parameter(torch.full((channels,), 0.25)) for _ in range(depth)])
+        self.conv_taps = None
+
+    def prepare_kernel(self):
+        self.conv_taps = [prepare_taps(k) for k in self.conv_kernels]
 
     def forward(self, x, mask):
         parts = [x]
         out = x
         m = mask.float()[..., None]
-        denom = torch.clamp_min(m.sum(dim=1, keepdim=True), 1.0)
+        # the frame count in the mask's type, as the JAX model counts
+        denom = torch.clamp_min(mask.sum(dim=1)[:, None, None], 1.0).float()
         for i, kernel in enumerate(self.conv_kernels):
             inp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-            y = dw_conv1d(inp, kernel, dilation=2 ** i).float()
+            taps = kernel if self.conv_taps is None else self.conv_taps[i]
+            y = dw_conv1d(inp, taps, dilation=2 ** i).float()
             mean = (y * m).sum(dim=1, keepdim=True) / denom
             var = ((y - mean).square() * m).sum(dim=1, keepdim=True) / denom
             y = (y - mean) / torch.sqrt(var + 1e-5) * self.in_w[i].float() + self.in_b[i].float()
@@ -268,7 +285,7 @@ class MaskNet(nn.Module):
             torch.arange(0, self.dim, 2, device=x.device, dtype=torch.float32) / self.dim))
         ang = torch.arange(t, device=x.device, dtype=torch.float32)[:, None] * inv_freq[None, :]
         pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1) * self.pos_scale.float()
-        h = h + pe.to(h.dtype)
+        h = h + pe  # float32: promotes a reduced-type stream, as in the JAX model
         h_in = h
         for layer in self.layers:
             h = layer(h, mask)
@@ -329,7 +346,13 @@ class SeparationEngine:
     16 kHz processing in non-overlapping windows (10 s = 160 k samples);
     a clip that fits one window is padded only to the next rung of the
     32k/64k/96k/160k ladder. All windows of a call go through the model in
-    one synchronous batched forward. Outputs are loudest first."""
+    one synchronous batched forward. Outputs are loudest first.
+
+    In a reduced compute type only the encoder, `in_norm` and the
+    bottleneck compute in it: the float32 position table promotes the
+    stream there, and every later module computes in float32 from weights
+    rounded to the compute type (`promote_after`), as the JAX model does.
+    The estimate is rounded to the compute type and returned in float32."""
 
     WINDOW = 160_000
     LADDER = BucketLadder((32_000, 64_000, 96_000, WINDOW))
@@ -338,7 +361,11 @@ class SeparationEngine:
                  compute_dtype: str | None = None):
         self.device = torch.device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
-        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        net = model.mask_net
+        self.model = promote_after(model.to(self.device),
+                                   (model.encoder, net.in_norm, net.bottleneck),
+                                   self.compute_dtype).eval()
+        prepare_kernels(self.model)
         self.sample_rate = model.sample_rate
         self.num_spks = model.num_spks
 
@@ -355,7 +382,7 @@ class SeparationEngine:
             wav = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(
                 self.device).to(self.compute_dtype)
             lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
-            return self.model(wav, lens).float().cpu().numpy()
+            return self.model(wav, lens).to(self.compute_dtype).float().cpu().numpy()
 
     def _order_and_fit(self, streams: np.ndarray, sr: int, t_orig: int) -> np.ndarray:
         """Loudest stream first, back to the input rate and length."""

@@ -18,6 +18,8 @@ import torch
 from torch import nn
 
 from ..ops.dwconv import dw_conv1d
+from ..ops.kernels import prepare_kernels
+from ..ops.kernels.dwconv import prepare_taps
 from ..runtime.buckets import BucketLadder, pad_to
 from ..runtime.precision import dequantize_audio, quantize_i16, resolve_compute_dtype
 from . import features
@@ -33,11 +35,15 @@ class FsmnBlock(nn.Module):
         self.down = nn.Linear(hidden, proj, bias=False)
         self.memory = nn.Parameter(torch.zeros(lorder + rorder + 1, 1, proj))
         self.up = nn.Linear(proj, hidden)
+        self.memory_taps = None
+
+    def prepare_kernel(self):
+        self.memory_taps = prepare_taps(self.memory)
 
     def forward(self, x, mask):
         # x (B, T, hidden), mask (B, T, 1)
         p = self.down(x) * mask
-        mem = dw_conv1d(p, self.memory, dilation=self.dilation,
+        mem = dw_conv1d(p, self.memory_taps or self.memory, dilation=self.dilation,
                         padding=(self.lorder * self.dilation, self.rorder * self.dilation))
         h = torch.relu(self.up(p + mem))
         return (x + h) * mask
@@ -94,6 +100,7 @@ class VADEngine:
         self.device = torch.device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        prepare_kernels(self.model)
 
     @classmethod
     def from_pretrained(cls, path: str, device: str | torch.device = "cuda",

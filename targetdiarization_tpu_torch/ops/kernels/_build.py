@@ -5,7 +5,8 @@ a plain `extern "C"` interface (no PyTorch headers, so a build takes
 seconds). The library lands in `_build/` inside the package, named by a
 hash of the sources and flags, and is built at first use. Each wrapper
 declares its C function's ctypes argument types with `declare`, which
-records them in SIGNATURES (the tests hold them against the sources).
+records them in SIGNATURES (the tests hold them against the sources) and
+returns the entry point that the wrapper calls.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -68,7 +70,14 @@ def build(path: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    with open(ptxas_log(path), "w") as f:  # each kernel's registers, spills, shared memory
+        f.write(proc.stderr)
     os.replace(tmp, path)
+
+
+def ptxas_log(path: str) -> str:
+    """Where `build` keeps ptxas's report for the library at `path`."""
+    return path[:-len(".so")] + ".ptxas.txt"
 
 
 @functools.cache
@@ -83,16 +92,65 @@ def load_library() -> ctypes.CDLL:
 SIGNATURES: dict[str, list] = {}
 
 
-def declare(symbol: str, argtypes: list):
-    """Records `symbol`'s ctypes argument types (the C function returns a
-    cudaError_t as int); returns a function that binds it at first call."""
-    SIGNATURES[symbol] = argtypes
+class Entry:
+    """One `extern "C"` kernel entry point. Called with x's card index and
+    the C arguments but the last; it appends PyTorch's current stream on
+    that card, enters the card's context only when it is not the current
+    one, and raises on a nonzero cudaError_t. The library is loaded and
+    the function bound at the first call.
 
-    @functools.cache
-    def bound():
-        fn = getattr(load_library(), symbol)
-        fn.argtypes = argtypes
+    With `packed` = n the C function takes one block of n int64 values (the
+    arguments, then the stream) instead: ctypes converts one pointer and
+    not n values, which halves the host's cost of a call where that cost,
+    not the card, sets a kernel's time. Each thread fills its own block."""
+
+    def __init__(self, symbol: str, argtypes: list, packed: int = 0):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.packed = packed
+        self._fn = None
+        self._blocks = threading.local()
+
+    def _bind(self):
+        import torch
+
+        fn = getattr(load_library(), self.symbol)
+        fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
+        # the raw stream handle and the current card, without the Python
+        # objects that torch.cuda.current_stream() and the device context build
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        self._device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+        self._guard = torch.cuda.device
+        self._fn = fn
         return fn
 
-    return bound
+    def _call(self, fn, device_index: int, args: tuple) -> int:
+        stream = self._stream(device_index)
+        if not self.packed:
+            return fn(*args, stream)
+        blocks = self._blocks
+        if not hasattr(blocks, "address"):
+            blocks.block = (ctypes.c_int64 * self.packed)()
+            blocks.address = ctypes.addressof(blocks.block)
+        blocks.block[:] = (*args, stream)
+        return fn(blocks.address)
+
+    def __call__(self, device_index: int, *args) -> None:
+        fn = self._fn or self._bind()
+        if device_index == self._device():
+            err = self._call(fn, device_index, args)
+        else:
+            with self._guard(device_index):
+                err = self._call(fn, device_index, args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} failed with CUDA error {err}")
+
+
+def declare(symbol: str, argtypes: list, packed: int = 0) -> Entry:
+    """Records `symbol`'s ctypes argument types (the C function returns a
+    cudaError_t as int; its last argument is the stream, or it takes one
+    block of `packed` int64 values) and returns its `Entry`."""
+    SIGNATURES[symbol] = argtypes
+    return Entry(symbol, argtypes, packed)

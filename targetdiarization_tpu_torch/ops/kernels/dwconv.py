@@ -10,6 +10,7 @@ library's own accumulation) and return x's type.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +36,16 @@ def dwconv_plain(x, kernel, dilation: int, pad_l: int, pad_r: int):
     return F.conv1d(xt, w, dilation=dilation, groups=c).transpose(1, 2)
 
 
-_fn = declare("td_dwconv", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_TYPES = (torch.float32, torch.bfloat16)
+# one block of 13 int64 values (csrc/dwconv.cu): at the ASR path's small
+# shapes the host's cost per call sets the time, and ctypes converts one
+# pointer faster than thirteen arguments
+_fn = declare("td_dwconv", [ctypes.c_void_p], packed=13)
 
 
 def _check(x, kernel, dilation, pad_l, pad_r) -> int:
     """Validates a CUDA call; returns T_out."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _TYPES:
         raise TypeError(f"dwconv kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, T, C*m) tensor, got {tuple(x.shape)}")
@@ -50,6 +55,11 @@ def _check(x, kernel, dilation, pad_l, pad_r) -> int:
     if x.shape[-1] != m * c:
         raise ValueError(f"x has {x.shape[-1]} channels, kernel {tuple(kernel.shape)} "
                          f"wants {m * c}")
+    if kernel.dtype != x.dtype or kernel.get_device() != x.get_device() \
+            or not kernel.is_contiguous():
+        raise ValueError(f"the taps must be a contiguous (K, m, C) {x.dtype} tensor on "
+                         f"{x.device}, got {kernel.dtype} on {kernel.device}: the module "
+                         "that owns them holds them in the activation type")
     if dilation < 1 or pad_l < 0 or pad_r < 0:
         raise ValueError(f"bad dilation {dilation} or padding ({pad_l}, {pad_r})")
     if smem_bytes(k, m, dilation) > MAX_SMEM:
@@ -62,25 +72,63 @@ def _check(x, kernel, dilation, pad_l, pad_r) -> int:
     return t_out
 
 
+class Taps(NamedTuple):
+    """A conv's taps held once in the kernel's layout and type: `weight`
+    (K, m, C) contiguous, in the activation type, on its card (device -1 on
+    the CPU), with what a call needs read once: its shape, address, type
+    flag, and the largest dilation whose tile fits in shared memory. The
+    module that owns the taps makes them (`prepare_taps`) when its engine
+    places it, so a call on the card validates x with a few attribute reads
+    and copies nothing."""
+
+    weight: torch.Tensor
+    shape: tuple
+    dtype: torch.dtype
+    device: int
+    ptr: int
+    is_bf16: int
+    max_dilation: int
+
+
+def prepare_taps(kernel: torch.Tensor) -> Taps:
+    if kernel.dim() != 3:
+        raise ValueError(f"kernel must be (K, m, C), got {tuple(kernel.shape)}")
+    w = kernel.detach().contiguous()
+    k, m, _ = w.shape
+    # smem_bytes(k, m, d) <= MAX_SMEM, solved for d
+    room = MAX_SMEM // (4 * CHANNELS * m) - ROWS - k
+    max_dilation = room // (k - 1) if k > 1 else room
+    return Taps(w, (k, m, w.shape[2]), w.dtype, w.get_device(), w.data_ptr(),
+                int(w.dtype is torch.bfloat16), max_dilation)
+
+
 def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0):
-    """Depthwise conv of x (B, T, C*m) with kernel (K, m, C). CPU tensors run
-    `dwconv_plain`; CUDA tensors launch the kernel (float32 or bfloat16;
-    the kernel is cast to x's type)."""
-    if x.device.type == "cpu":
-        return dwconv_plain(x, kernel, dilation, pad_l, pad_r)
-    if x.device.type != "cuda":
+    """Depthwise conv of x (B, T, C*m) with kernel (K, m, C), a tensor or
+    prepared `Taps`. CPU tensors run `dwconv_plain`; CUDA tensors launch the
+    kernel (float32 or bfloat16), with the taps already in x's type on its
+    card: the call copies nothing."""
+    taps = kernel if isinstance(kernel, Taps) else None
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dwconv_plain(x, kernel if taps is None else taps.weight, dilation, pad_l,
+                                pad_r)
         raise RuntimeError(f"dwconv runs on cpu or cuda, not {x.device}")
-    t_out = _check(x, kernel, dilation, pad_l, pad_r)
-    k, m, c = kernel.shape
-    b, t = x.shape[0], x.shape[1]
-    w = kernel.detach().to(device=x.device, dtype=x.dtype).contiguous()
-    out = torch.empty(b, t_out, c, device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, t, t_out, c, m, k,
-                    dilation, pad_l, int(x.dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"td_dwconv failed with CUDA error {err}")
+    if taps is None:
+        _check(x, kernel, dilation, pad_l, pad_r)
+        taps = prepare_taps(kernel)
+    k, m, c = taps.shape
+    b, t, cin = x.shape
+    t_out = t + pad_l + pad_r - (k - 1) * dilation
+    if not (x.dtype is taps.dtype and cin == m * c and x.is_contiguous()
+            and x.get_device() == taps.device and t_out > 0
+            and 1 <= dilation <= taps.max_dilation and pad_l >= 0 and pad_r >= 0):
+        _check(x, taps.weight, dilation, pad_l, pad_r)  # raises with the reason
+    # the output has x's shape for m 1 and SAME or (lorder, rorder) pads:
+    # empty_like is the cheaper allocation on the host
+    out = torch.empty_like(x) if t_out == t and m == 1 else \
+        torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
+    _fn(taps.device, x.data_ptr(), taps.ptr, out.data_ptr(), b, t, t_out, c, m, k, dilation,
+        pad_l, taps.is_bf16)
     dwconv.launches += 1
     return out
 

@@ -11,6 +11,7 @@ rows add silu(bias) whatever the model's mask says.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -56,48 +57,106 @@ def ffconvm_plain(x, na, nb, weight, bias, dwk, norm: str = "scalenorm"):
     return acc.to(x.dtype)
 
 
-_fn = declare("td_ffconvm", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-               + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo + r with hi = bf16(t), lo = bf16(t - hi) and |r| at most
+    about 2^-18 |t|: float32 operands as two bf16 halves for the tensor cores."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+class FFConvMOperands(NamedTuple):
+    """The kernel's operands of one FFConvM, made once for one activation
+    type on one card: W as bf16 (cout, cin) halves (w_lo None when W is
+    bf16-exact in that type, so its pass is skipped), and the norm and
+    bias vectors and the (17, cout) taps in float32, rounded to the
+    activation type as `ffconvm_plain` rounds them."""
+
+    dtype: torch.dtype
+    layernorm: bool
+    w_hi: torch.Tensor
+    w_lo: torch.Tensor | None
+    na: torch.Tensor
+    nb: torch.Tensor
+    bias: torch.Tensor
+    dwk: torch.Tensor
+
+
+def prepare_ffconvm(na, nb, weight, bias, dwk, norm: str, dtype: torch.dtype,
+                    device=None) -> FFConvMOperands:
+    """The kernel's operands for activations of `dtype` (float32 or
+    bfloat16) on `device` (default: the weight's)."""
+    if norm not in NORMS:
+        raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
+    if dtype not in _TYPES:
+        raise TypeError(f"ffconvm kernel takes float32 or bfloat16, got {dtype}")
+    device = weight.device if device is None else torch.device(device)
+
+    def f32(a, *shape):
+        return a.detach().to(device=device, dtype=dtype).float().reshape(*shape).contiguous()
+
+    w_hi, w_lo = split_bf16(weight.detach().to(device=device, dtype=dtype))
+    return FFConvMOperands(dtype, norm == "layernorm", w_hi.contiguous(),
+                           w_lo.contiguous() if bool(w_lo.any()) else None, f32(na, -1),
+                           f32(nb, -1), f32(bias, -1), f32(dwk, TAPS, -1))
+
+
+_TYPES = (torch.float32, torch.bfloat16)
+_fn = declare("td_ffconvm", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+              + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(x, weight, dwk, norm):
     if norm not in NORMS:
         raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _TYPES:
         raise TypeError(f"ffconvm kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, T, cin) tensor, got {tuple(x.shape)}")
     cout, cin = weight.shape
-    if cin != x.shape[-1] or weight.dtype != x.dtype or not weight.is_contiguous() \
-            or weight.device != x.device:
-        raise ValueError(f"weight must be a contiguous ({cout}, {x.shape[-1]}) {x.dtype} "
-                         f"tensor on {x.device}")
+    if cin != x.shape[-1] or cin % 8 or cout % 8:
+        raise ValueError(f"weight must be (cout, {x.shape[-1]}) with cin and cout "
+                         f"multiples of 8, got {tuple(weight.shape)}")
     if tuple(dwk.shape) != (TAPS, 1, cout):
         raise ValueError(f"dwk must be ({TAPS}, 1, {cout}), got {tuple(dwk.shape)}")
 
 
-def ffconvm(x, na, nb, weight, bias, dwk, norm: str = "scalenorm"):
+def _check_prepared(x, ops: FFConvMOperands, norm: str) -> None:
+    """Attribute reads only: the operands were made for x's type, card and width."""
+    if ops.dtype != x.dtype or ops.w_hi.get_device() != x.get_device() \
+            or ops.layernorm != (norm == "layernorm"):
+        raise ValueError(f"ffconvm operands were prepared for {ops.dtype} "
+                         f"{'layernorm' if ops.layernorm else 'scalenorm'} on "
+                         f"{ops.w_hi.device}, called with {x.dtype} {norm} on {x.device}")
+    if x.dim() != 3 or not x.is_contiguous() or ops.w_hi.shape[1] != x.shape[-1]:
+        raise ValueError(f"x must be a contiguous (B, T, {ops.w_hi.shape[1]}) tensor, got "
+                         f"{tuple(x.shape)}")
+
+
+def ffconvm(x, na, nb, weight, bias, dwk, norm: str = "scalenorm",
+            prepared: FFConvMOperands | None = None):
     """Fused FFConvM. CPU tensors run `ffconvm_plain`; CUDA tensors launch
-    the kernel (float32 or bfloat16, float32 accumulation)."""
-    if x.device.type == "cpu":
-        return ffconvm_plain(x, na, nb, weight, bias, dwk, norm)
-    if x.device.type != "cuda":
+    the kernel (float32 or bfloat16, float32 accumulation) on `prepared`
+    operands (`prepare_ffconvm`), which a model makes once; without them
+    the call prepares its own."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return ffconvm_plain(x, na, nb, weight, bias, dwk, norm)
         raise RuntimeError(f"ffconvm runs on cpu or cuda, not {x.device}")
-    _check(x, weight, dwk, norm)
+    if prepared is None:
+        _check(x, weight, dwk, norm)
+        prepared = prepare_ffconvm(na, nb, weight, bias, dwk, norm, x.dtype, x.device)
+    _check_prepared(x, prepared, norm)
     b, t, cin = x.shape
-    cout = weight.shape[0]
-    small = [a.detach().to(device=x.device, dtype=x.dtype).contiguous().reshape(-1)
-             for a in (na, nb, bias, dwk)]
+    cout = prepared.w_hi.shape[0]
     stats = torch.empty(b * t, 2, device=x.device, dtype=torch.float32)
     out = torch.empty(b, t, cout, device=x.device, dtype=x.dtype)
-    scale = cin ** -0.5
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), small[0].data_ptr(), small[1].data_ptr(), weight.data_ptr(),
-                    small[2].data_ptr(), small[3].data_ptr(), stats.data_ptr(), out.data_ptr(),
-                    b, t, cin, cout, int(norm == "layernorm"), EPS, scale * scale,
-                    int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"td_ffconvm failed with CUDA error {err}")
+    w_lo = prepared.w_lo
+    _fn(x.get_device(), x.data_ptr(), prepared.na.data_ptr(), prepared.nb.data_ptr(),
+        prepared.w_hi.data_ptr(), None if w_lo is None else w_lo.data_ptr(),
+        prepared.bias.data_ptr(), prepared.dwk.data_ptr(), stats.data_ptr(), out.data_ptr(),
+        b, t, cin, cout, int(prepared.layernorm), EPS, cin ** -0.5 * cin ** -0.5,
+        int(x.dtype == torch.bfloat16))
     ffconvm.launches += 1
     return out
 

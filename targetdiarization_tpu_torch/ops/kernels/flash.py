@@ -86,13 +86,9 @@ def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):
     b, n_groups, g, d = q.shape
     e = v.shape[-1]
     out = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), mask.data_ptr(),
-                    lq.data_ptr(), lin_kv.data_ptr(), lin_ku.data_ptr(), out.data_ptr(),
-                    b, n_groups, g, d, e, int(q.dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"td_flash_gated failed with CUDA error {err}")
+    _fn(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
+        mask.data_ptr(), lq.data_ptr(), lin_kv.data_ptr(), lin_ku.data_ptr(), out.data_ptr(),
+        b, n_groups, g, d, e, int(q.dtype == torch.bfloat16))
     flash_gated.launches += 1
     return out
 
@@ -113,13 +109,9 @@ def flash_group_attention(q, k, v, u, mask):
     e = v.shape[-1]
     out_v = torch.empty_like(v)
     out_u = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _group_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
-                          mask.data_ptr(), out_v.data_ptr(), out_u.data_ptr(),
-                          b, n_groups, g, d, e, int(q.dtype == torch.bfloat16),
-                          torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"td_flash_group failed with CUDA error {err}")
+    _group_fn(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
+              mask.data_ptr(), out_v.data_ptr(), out_u.data_ptr(), b, n_groups, g, d, e,
+              int(q.dtype == torch.bfloat16))
     flash_group_attention.launches += 1
     return out_v, out_u
 

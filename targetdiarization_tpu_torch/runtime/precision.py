@@ -11,9 +11,11 @@ changes the samples, so parity depends on it.
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 _NAMES = {"float32": torch.float32, "f32": torch.float32,
           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -30,6 +32,20 @@ def resolve_compute_dtype(requested: str | None, device: torch.device | str) -> 
             raise ValueError(f"unsupported compute dtype {name!r}; "
                              f"one of {sorted(_NAMES)}") from None
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+def promote_after(model: nn.Module, first: nn.Module | Sequence[nn.Module],
+                  dtype: torch.dtype) -> nn.Module:
+    """The JAX package's types in a reduced compute type: every weight is
+    rounded to `dtype`, but only the module(s) `first` compute in it; the
+    float32 position table added to their output promotes the stream, and
+    every later layer computes in float32 from the rounded weights."""
+    model.to(dtype)
+    if dtype != torch.float32:
+        model.float()
+        for m in ([first] if isinstance(first, nn.Module) else first):
+            m.to(dtype)
+    return model
 
 
 def quantize_i16(x) -> np.ndarray:

@@ -368,3 +368,63 @@ def test_chip_smoke_synth_copy_renders_train_synth():
         np.testing.assert_array_equal(got[0], want[0])
         assert got[1] == want[1]
     assert chip_smoke.cer("天地人日", "天人日月") == synth.cer("天地人日", "天人日月")
+
+
+def test_cif_predictor_bf16_counts_frames_like_jax():
+    """In bf16 mode the JAX CIF predictor counts valid frames in the mask's
+    type: at T = 303 a full row counts 304 frames, past the last slot, so
+    its 0.45 tail mass is dropped (jax.nn.one_hot gives zeros) and the
+    last token short of the threshold never fires. The port counts the same
+    way: same token counts, fire frames and tokens, one row fully valid and
+    one not. Both compute the predictor in float32 from bf16-rounded
+    weights, as their bf16 engines do after the position add."""
+    from targetdiarization_tpu.runtime.precision import cast_params
+
+    rng = np.random.default_rng(0)
+    dim, t = 16, 303
+    jmod = jasr.CIFPredictor(dim=dim)
+    enc = (rng.standard_normal((2, t, dim)) * 0.5).astype(np.float32)
+    mask = np.ones((2, t), np.float32)
+    mask[1, 290:] = 0.0
+    params = _jax_highest(jax.jit(jmod.init), jax.random.PRNGKey(3), jnp.asarray(enc),
+                          jnp.asarray(mask))
+    params = cast_params(jax.tree_util.tree_map(
+        lambda p: p + 0.1 * jnp.asarray(rng.standard_normal(p.shape), p.dtype), params),
+        jnp.bfloat16)
+    bf = jnp.bfloat16
+    tokens, _, alphas, fire_frames, n_tokens, _ = _jax_highest(
+        jax.jit(jmod.apply), params, jnp.asarray(enc), jnp.asarray(mask, bf))
+    p = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.asarray(a, np.float32)),
+                               params["params"])
+    port = tasr.CIFPredictor(dim)
+    port.load_state_dict({"conv.weight": p["conv"]["kernel"].permute(2, 1, 0),
+                          "conv.bias": p["conv"]["bias"], "alpha.weight": p["alpha"]["kernel"].T,
+                          "alpha.bias": p["alpha"]["bias"]})
+    with torch.inference_mode():
+        got = port(torch.from_numpy(enc), torch.from_numpy(mask).bfloat16())
+    # the data exercises the quirk: the bf16 count passes T, and the
+    # dropped tail would have fired one more token on the full row
+    assert int(np.asarray(jnp.sum(jnp.asarray(mask[0], bf)))) == 304
+    assert np.asarray(alphas)[0].sum() % 1.0 + 0.45 >= 1.0
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(n_tokens))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(fire_frames))
+    assert _rel(got[3].numpy(), np.asarray(alphas)) <= 1e-5
+    # the tokens weigh frames by float32 cumulative sums over 303 frames,
+    # summed in another order by the two frameworks
+    assert _rel(got[0].numpy(), np.asarray(tokens)) <= 1e-4
+
+
+def test_engines_hold_taps_in_the_activation_type():
+    """Each engine makes its memory convs' taps once, in the type the conv's
+    input has: float32 in the bf16 Paraformer (its stream is promoted after
+    in_proj), bf16 in the bf16 VAD."""
+    from targetdiarization_tpu_torch.models.asr import ASREngine, SANMAttention
+    from targetdiarization_tpu_torch.models.vad import FsmnBlock
+
+    asr = ASREngine.from_pretrained(CKPT["asr"], device="cpu", compute_dtype="bfloat16")
+    sanm = [m for m in asr.model.modules() if isinstance(m, SANMAttention) and m.fsmn is not None]
+    assert sanm and all(m.fsmn_taps.dtype == torch.float32 for m in sanm)
+    assert all(m.fsmn_taps.weight.data_ptr() == m.fsmn.data_ptr() for m in sanm)
+    vad = VADEngine.from_pretrained(CKPT["vad"], device="cpu", compute_dtype="bfloat16")
+    blocks = [m for m in vad.model.modules() if isinstance(m, FsmnBlock)]
+    assert blocks and all(m.memory_taps.dtype == torch.bfloat16 for m in blocks)

@@ -284,3 +284,159 @@ def test_ctypes_signatures_match_cuda_sources():
                                for p in params.split(",")]
     assert set(found) == {"td_ffconvm", "td_flash_gated", "td_flash_group", "td_dwconv"}
     assert found == _build.SIGNATURES
+
+
+# ---------------- FFConvM's prepared operands and float32 split ----------------
+
+
+@pytest.mark.parametrize("scale", [1e-3, 0.05, 30.0])
+def test_split_bf16_reconstructs_float32(scale, rng):
+    """W_hi + W_lo gives W within 2^-16 relative; W_lo is exactly zero when W
+    is bf16-exact (the main path's weights), so that pass is skipped."""
+    w = torch.from_numpy((rng.standard_normal((96, 64)) * scale).astype(np.float32))
+    hi, lo = ffmod.split_bf16(w)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert (err <= 2.0 ** -16 * w.double().abs()).all()
+    hi2, lo2 = ffmod.split_bf16(w.bfloat16().float())
+    assert not lo2.any()
+    torch.testing.assert_close(hi2, w.bfloat16(), rtol=0, atol=0)
+
+
+def _emulate_kernel_product(y, ops):
+    """The kernel's product: y split into bf16 halves for float32 y (one
+    bf16 pass for bf16 y), each bf16 x bf16 product exact, summed in float64
+    here (the card sums in float32)."""
+    hi, lo = ffmod.split_bf16(y)
+    w_hi = ops.w_hi.double()
+    acc = hi.double() @ w_hi.T
+    if y.dtype == torch.float32:
+        acc += lo.double() @ w_hi.T
+    if ops.w_lo is not None:
+        acc += hi.double() @ ops.w_lo.double().T
+    return acc.float()
+
+
+@pytest.mark.parametrize("bf16_weights", [False, True])
+@pytest.mark.parametrize("norm", ["scalenorm", "layernorm"])
+def test_split_product_meets_float32_limit(norm, bf16_weights, rng):
+    """Two passes (three when W is not bf16-exact) stay within the card
+    check's 1e-4 limit of the float32 product; one bf16 pass alone does not."""
+    x, na, nb, wk, wb, dwk = _ff_inputs(rng, 1, 200, 256, 128, norm)
+    w = torch.from_numpy(np.ascontiguousarray(wk.T))
+    if bf16_weights:
+        w = w.bfloat16().float()
+    ops = ffmod.prepare_ffconvm(torch.from_numpy(na), torch.from_numpy(nb), w,
+                                torch.from_numpy(wb), torch.from_numpy(dwk), norm,
+                                torch.float32)
+    assert (ops.w_lo is None) == bf16_weights
+    y = ffmod._norm_f32(torch.from_numpy(x), torch.from_numpy(na), torch.from_numpy(nb), norm)
+    exact = (y.double() @ w.double().T).float()
+    got = _emulate_kernel_product(y, ops)
+    scale = exact.abs().max()
+    assert (got - exact).abs().max() <= 1e-5 * scale
+    one_pass = (y.bfloat16().double() @ ops.w_hi.double().T).float()
+    assert (one_pass - exact).abs().max() > 1e-4 * scale
+
+
+def test_prepare_ffconvm_operands(rng):
+    x, na, nb, wk, wb, dwk = _ff_inputs(rng, 1, 20, 64, 136, "layernorm")
+    t = torch.from_numpy
+    w = t(np.ascontiguousarray(wk.T))
+    ops = ffmod.prepare_ffconvm(t(na), t(nb), w, t(wb), t(dwk), "layernorm", torch.float32)
+    assert ops.layernorm and ops.dtype == torch.float32
+    assert ops.w_hi.shape == (136, 64) and ops.w_hi.is_contiguous()
+    assert ops.w_lo is not None and ops.w_lo.dtype == torch.bfloat16
+    assert ops.na.shape == ops.nb.shape == (64,) and ops.bias.shape == (136,)
+    assert ops.dwk.shape == (17, 136) and ops.dwk.dtype == torch.float32
+    torch.testing.assert_close(ops.dwk, t(dwk)[:, 0], rtol=0, atol=0)
+    # for bf16 activations every operand is rounded to bf16 and W has one half
+    bf = ffmod.prepare_ffconvm(t(na), t(nb), w, t(wb), t(dwk), "layernorm", torch.bfloat16)
+    assert bf.w_lo is None and bf.dtype == torch.bfloat16
+    torch.testing.assert_close(bf.bias, t(wb).bfloat16().float(), rtol=0, atol=0)
+    torch.testing.assert_close(bf.w_hi, w.bfloat16(), rtol=0, atol=0)
+
+
+def test_prepared_ffconvm_operands_are_checked(rng):
+    """The CUDA path checks the prepared operands with attribute reads and
+    raises when they were made for another type, norm or width."""
+    x, na, nb, wk, wb, dwk = _ff_inputs(rng, 1, 20, 64, 128, "scalenorm")
+    t = torch.from_numpy
+    args = (t(na), t(nb), t(np.ascontiguousarray(wk.T)), t(wb), t(dwk), "scalenorm")
+    ops = ffmod.prepare_ffconvm(*args, torch.float32)
+    xt = t(x)
+    ffmod._check_prepared(xt, ops, "scalenorm")
+    with pytest.raises(ValueError, match="prepared for"):
+        ffmod._check_prepared(xt.bfloat16(), ops, "scalenorm")
+    with pytest.raises(ValueError, match="prepared for"):
+        ffmod._check_prepared(xt, ops, "layernorm")
+    with pytest.raises(ValueError, match="contiguous"):
+        ffmod._check_prepared(t(np.zeros((1, 20, 72), np.float32)), ops, "scalenorm")
+    with pytest.raises(ValueError, match="contiguous"):
+        ffmod._check_prepared(t(np.zeros((1, 64, 20), np.float32)).transpose(1, 2), ops,
+                              "scalenorm")
+    with pytest.raises(ValueError, match="norm"):
+        ffmod.prepare_ffconvm(*args[:-1], "rmsnorm", torch.float32)
+    with pytest.raises(TypeError):
+        ffmod.prepare_ffconvm(*args, torch.float16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ffmod._check(t(np.zeros((1, 4, 60), np.float32)), torch.zeros(64, 60),
+                     torch.zeros(17, 1, 64), "scalenorm")
+
+
+def test_dwconv_taps_must_be_ready():
+    """The CUDA path copies nothing: taps in another type, or not contiguous,
+    raise instead of being converted per call."""
+    x = torch.zeros(1, 50, 64)
+    with pytest.raises(ValueError, match="taps"):
+        dwmod._check(x, torch.zeros(13, 1, 64, dtype=torch.bfloat16), 1, 10, 2)
+    with pytest.raises(ValueError, match="taps"):
+        dwmod._check(x, torch.zeros(64, 1, 13).transpose(0, 2), 1, 10, 2)
+
+
+def test_packed_entry_fills_one_block_per_call():
+    """A packed entry point gets the address of one int64 block holding the
+    call's arguments and then the stream, refilled on every call."""
+    seen = []
+
+    def c_function(address):
+        seen.append(list((ctypes.c_int64 * 4).from_address(address)))
+        return 0
+
+    entry = _build.Entry("td_fake", [ctypes.c_void_p], packed=4)
+    entry._fn = c_function
+    entry._device = lambda: 0
+    entry._stream = lambda index: 1234
+    entry(0, 2 ** 40 + 3, -1, 7)
+    entry(0, 5, 6, 8)
+    assert seen == [[2 ** 40 + 3, -1, 7, 1234], [5, 6, 8, 1234]]
+    entry._fn = lambda address: 700
+    with pytest.raises(RuntimeError, match="td_fake failed with CUDA error 700"):
+        entry(0, 1, 2, 3)
+
+
+def test_prepared_taps_match_tensor_taps(rng):
+    """Taps made once (`prepare_taps`) give the tensor's result on the CPU,
+    through `dw_conv1d`'s padding forms."""
+    x = rng.standard_normal((2, 90, 64)).astype(np.float32)
+    w = (rng.standard_normal((13, 1, 64)) * 0.3).astype(np.float32)
+    taps = dwmod.prepare_taps(torch.from_numpy(w).permute(2, 1, 0).contiguous().permute(2, 1, 0))
+    assert taps.shape == (13, 1, 64) and taps.device == -1 and taps.dtype == torch.float32
+    assert taps.weight.is_contiguous() and taps.ptr == taps.weight.data_ptr()
+    for pad in ("SAME", (10, 2)):
+        want = dw_conv1d(torch.from_numpy(x), torch.from_numpy(w), padding=pad)
+        got = dw_conv1d(torch.from_numpy(x), taps, padding=pad)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="kernel must be"):
+        dwmod.prepare_taps(torch.zeros(13, 64))
+
+
+@pytest.mark.parametrize("k,m", [(1, 1), (11, 1), (13, 1), (39, 1), (39, 2), (5, 3)])
+def test_prepared_taps_dilation_limit_matches_shared_memory(k, m):
+    """`max_dilation` is the largest dilation whose tile fits the block's
+    shared memory, as the kernel sizes it."""
+    taps = dwmod.prepare_taps(torch.zeros(k, m, 32))
+    d = taps.max_dilation
+    assert dwmod.smem_bytes(k, m, d) <= dwmod.MAX_SMEM
+    if k > 1:
+        assert dwmod.smem_bytes(k, m, d + 1) > dwmod.MAX_SMEM

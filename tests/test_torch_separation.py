@@ -277,3 +277,77 @@ def test_fp16_checkpoint_512_loads_and_converts():
     for k, v in sd.items():
         assert v.dtype == torch.float32 and v.shape == want[k].shape, k
     assert len(model.mask_net.layers) == 24
+
+
+# ---------------- bf16 mode: the JAX package's types ----------------
+
+
+def _bf16_engine(params):
+    port = tsep.MossFormer2(**SMALL)
+    port.load_state_dict(mossformer2_state_dict(params), strict=True)
+    return tsep.SeparationEngine(port, device="cpu", compute_dtype="bfloat16")
+
+
+def test_bf16_engine_computes_in_float32_after_position_add(rng):
+    """In bf16 mode the encoder, in_norm and the bottleneck compute in bf16;
+    every MossLayer and the decoder receive float32 and hold bf16-exact
+    float32 weights (the JAX model's float32 position table promotes the
+    stream); every FFConvM's kernel operands are float32 with no W_lo."""
+    _, params, _ = _small_model()
+    engine = _bf16_engine(params)
+    model = engine.model
+    net = model.mask_net
+    seen = {}
+
+    def hook(name):
+        return lambda mod, args, out: seen.__setitem__(name, (args[0].dtype, out.dtype))
+
+    handles = [layer.register_forward_hook(hook(f"layer{i}"))
+               for i, layer in enumerate(net.layers)]
+    handles += [model.decoder.register_forward_hook(hook("decoder")),
+                net.bottleneck.register_forward_hook(hook("bottleneck"))]
+    wav = (rng.standard_normal((2, 4000)) * 0.3).astype(np.float32)
+    est = engine._dispatch(wav, np.array([4000, 3100]))
+    for h in handles:
+        h.remove()
+    assert est.dtype == np.float32 and np.isfinite(est).all()
+    assert seen["bottleneck"] == (torch.bfloat16, torch.bfloat16)
+    for name in [f"layer{i}" for i in range(len(net.layers))] + ["decoder"]:
+        assert seen[name] == (torch.float32, torch.float32), (name, seen[name])
+    for mod in (model.encoder, net.in_norm, net.bottleneck):
+        assert all(p.dtype == torch.bfloat16 for p in mod.parameters())
+    later = [p for m in (net.layers, net.out_ln, net.intra_norm, net.spk_expand, net.out_tanh,
+                         net.out_sig, net.mask_proj, model.decoder) for p in m.parameters()]
+    later.append(net.prelu)
+    for p in later:
+        assert p.dtype == torch.float32
+        torch.testing.assert_close(p, p.bfloat16().float(), rtol=0, atol=0)
+    ops = [m.kernel_ops for m in net.layers.modules() if isinstance(m, tsep.FFConvM)]
+    assert len(ops) == 5 * len(net.layers)
+    assert all(o.dtype == torch.float32 and o.w_lo is None for o in ops)
+    # the estimate leaves the engine rounded to bf16, in float32
+    np.testing.assert_array_equal(est, torch.from_numpy(est).bfloat16().float().numpy())
+
+
+def test_bf16_engine_matches_jax_bf16_mode(rng):
+    """A 2-layer MossFormer2 in bf16 mode against the JAX package's bf16
+    mode (params cast to bf16, input cast to bf16, estimate rounded to bf16,
+    as its SeparationEngine does) on the same params and input. Both round
+    the estimate to bf16, so a float32 difference in the last bits can flip
+    one rounding by one bf16 step: up to 2^-8 of the largest value, within
+    the 4e-3 max limit; the mean difference bounds everything else."""
+    from targetdiarization_tpu.runtime.precision import cast_params
+
+    mod, params, _ = _small_model()
+    wav = (rng.standard_normal((2, 4000)) * 0.3).astype(np.float32)
+    lengths = np.array([4000, 3100])
+    bf = jnp.bfloat16
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(mod.apply)(cast_params(params, bf), jnp.asarray(wav, bf),
+                                  jnp.asarray(lengths))
+    want = np.asarray(want.astype(bf).astype(jnp.float32))
+    got = _bf16_engine(params)._dispatch(wav, lengths)
+    assert got.shape == want.shape == (2, 2, 4000)
+    diff = np.abs(got - want)
+    assert diff.max() <= 4e-3 * np.abs(want).max()
+    assert diff.mean() <= 1e-4 * np.abs(want).mean()
