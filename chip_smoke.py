@@ -178,6 +178,12 @@ def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
             if (ops.w_lo is None) != bf16_weights:
                 raise AssertionError(f"ffconvm {name} {variant}: W_lo is "
                                      f"{'absent' if ops.w_lo is None else 'present'}")
+            try:
+                ffconvm(*args)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("ffconvm ran on the card without prepared operands")
             got = ffconvm(*args, prepared=ops)
             want = ffconvm_plain(*args)
             torch.cuda.synchronize()
@@ -324,10 +330,17 @@ def check_dwconv() -> list[dict]:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(batch, t, c * m, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(k, m, c, generator=gen, device="cuda") * 0.2).to(dtype)
+            args = (x, w, dil, pad_l, pad_r)
             # the taps as the modules hold them, made once (`prepare_taps`)
-            args = (x, prepare_taps(w), dil, pad_l, pad_r)
+            taps = prepare_taps(w)
             before = dwconv.launches
-            got = dwconv(*args)
+            try:
+                dwconv(*args)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("dwconv ran on the card without prepared taps")
+            got = dwconv(*args, taps=taps)
             want = dwconv_plain(x, w, dil, pad_l, pad_r)
             if dwconv.launches != before + 1:
                 raise AssertionError("dwconv did not launch its kernel")
@@ -354,13 +367,14 @@ def check_dwconv() -> list[dict]:
             kern_ms, lib_ms = [], []
             for _ in range(rounds):
                 lib_ms.append(time_ms(library, iters=iters))
-                kern_ms += [time_ms(lambda: dwconv(*args), iters=iters) for _ in range(2)]
+                kern_ms += [time_ms(lambda: dwconv(*args, taps=taps), iters=iters)
+                            for _ in range(2)]
                 lib_ms.append(time_ms(library, iters=iters))
             row = {"shape": name, "dtype": dname, "B": batch, "T": t, "K": k, "m": m, "C": c,
                    "dilation": dil, "pads": [pad_l, pad_r], "flops": flops, "bytes": nbytes,
                    "max_abs_err": err, "rel_err": rel,
                    "ms": statistics.median(kern_ms), "ms_range": [min(kern_ms), max(kern_ms)],
-                   "device_ms": graph_ms(lambda: dwconv(*args)),
+                   "device_ms": graph_ms(lambda: dwconv(*args, taps=taps)),
                    "plain_ms": time_ms(lambda: dwconv_plain(x, w, dil, pad_l, pad_r)),
                    "library_ms": statistics.median(lib_ms),
                    "library_ms_range": [min(lib_ms), max(lib_ms)],
@@ -371,7 +385,7 @@ def check_dwconv() -> list[dict]:
                 raise AssertionError(f"dwconv {name} {dname}: kernel vs plain rel err "
                                      f"{rel:.3g} > {TOL[dname]}")
             rows.append(row)
-            del x, got, want, xt
+            del x, got, want, xt, taps
     return rows
 
 
@@ -441,8 +455,9 @@ def plain_kernels():
     stack = ExitStack()
     stack.enter_context(mock.patch.object(separation, "ffconvm", ffconvm_plain_call))
     stack.enter_context(mock.patch.object(separation, "flash_gated", flash_gated_plain))
-    def dwconv_plain_call(x, kernel, *args):
-        return dwconv_plain(x, getattr(kernel, "weight", kernel), *args)
+
+    def dwconv_plain_call(x, kernel, dilation, pad_l, pad_r, taps=None):
+        return dwconv_plain(x, kernel, dilation, pad_l, pad_r)
 
     stack.enter_context(mock.patch.object(dwconv_op, "dwconv", dwconv_plain_call))
     return stack

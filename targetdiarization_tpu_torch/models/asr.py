@@ -81,7 +81,7 @@ class SANMAttention(nn.Module):
         att = torch.softmax(att, dim=-1)
         out = torch.matmul(att, vh).transpose(1, 2).reshape(b, t, self.dim)
         if context is None:
-            out = out + dw_conv1d(v * mask[..., None], self.fsmn_taps or self.fsmn)
+            out = out + dw_conv1d(v * mask[..., None], self.fsmn, taps=self.fsmn_taps)
         return self.out(out)
 
 

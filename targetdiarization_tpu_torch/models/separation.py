@@ -179,7 +179,7 @@ class DilatedDenseFsmnNet(nn.Module):
         self.in_b = nn.ParameterList([nn.Parameter(torch.zeros(channels)) for _ in range(depth)])
         self.prelu = nn.ParameterList(
             [nn.Parameter(torch.full((channels,), 0.25)) for _ in range(depth)])
-        self.conv_taps = None
+        self.conv_taps = [None] * depth
 
     def prepare_kernel(self):
         self.conv_taps = [prepare_taps(k) for k in self.conv_kernels]
@@ -192,8 +192,7 @@ class DilatedDenseFsmnNet(nn.Module):
         denom = torch.clamp_min(mask.sum(dim=1)[:, None, None], 1.0).float()
         for i, kernel in enumerate(self.conv_kernels):
             inp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-            taps = kernel if self.conv_taps is None else self.conv_taps[i]
-            y = dw_conv1d(inp, taps, dilation=2 ** i).float()
+            y = dw_conv1d(inp, kernel, dilation=2 ** i, taps=self.conv_taps[i]).float()
             mean = (y * m).sum(dim=1, keepdim=True) / denom
             var = ((y - mean).square() * m).sum(dim=1, keepdim=True) / denom
             y = (y - mean) / torch.sqrt(var + 1e-5) * self.in_w[i].float() + self.in_b[i].float()

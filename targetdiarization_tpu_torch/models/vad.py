@@ -43,8 +43,9 @@ class FsmnBlock(nn.Module):
     def forward(self, x, mask):
         # x (B, T, hidden), mask (B, T, 1)
         p = self.down(x) * mask
-        mem = dw_conv1d(p, self.memory_taps or self.memory, dilation=self.dilation,
-                        padding=(self.lorder * self.dilation, self.rorder * self.dilation))
+        mem = dw_conv1d(p, self.memory, dilation=self.dilation,
+                        padding=(self.lorder * self.dilation, self.rorder * self.dilation),
+                        taps=self.memory_taps)
         h = torch.relu(self.up(p + mem))
         return (x + h) * mask
 

@@ -9,20 +9,23 @@ version. This function only resolves the padding and the unbatched form.
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
-from .kernels.dwconv import dwconv
+from .kernels.dwconv import Taps, dwconv
 
 
 def dw_conv1d(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
-              padding: Union[str, Sequence[int]] = "SAME") -> torch.Tensor:
+              padding: Union[str, Sequence[int]] = "SAME",
+              taps: Optional[Taps] = None) -> torch.Tensor:
     """out[..., t, c] = sum_i sum_j kernel[i, j, c] * x[..., t + i*dilation - pad_l, c*m + j].
 
     x: (B, T, Cin) or (T, Cin) with Cin = m * C; kernel: (K, m, C), the
     flax grouped-conv layout (group c reads input channels c*m .. c*m+m-1).
     padding: "SAME" or explicit (pad_l, pad_r) zero padding of time.
+    taps: the kernel made once for the card (`prepare_taps`), which a CUDA
+    x needs; the CPU reads `kernel`.
     """
     k, m, c = kernel.shape
     if x.shape[-1] != m * c:
@@ -36,5 +39,5 @@ def dw_conv1d(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
         pad_l, pad_r = (int(p) for p in padding)
     squeeze = x.dim() == 2
     xb = x[None] if squeeze else x
-    out = dwconv(xb.contiguous(), kernel, dilation, pad_l, pad_r)
+    out = dwconv(xb.contiguous(), kernel, dilation, pad_l, pad_r, taps=taps)
     return out[0] if squeeze else out

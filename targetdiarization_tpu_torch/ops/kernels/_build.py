@@ -101,8 +101,10 @@ class Entry:
 
     With `packed` = n the C function takes one block of n int64 values (the
     arguments, then the stream) instead: ctypes converts one pointer and
-    not n values, which halves the host's cost of a call where that cost,
-    not the card, sets a kernel's time. Each thread fills its own block."""
+    not n values. Only dwconv, whose calls at the ASR path's shapes cost
+    the host more than the card, takes it: there it takes 1.0-1.2 us off
+    a call of about 8 us on an H100's host (`tools/dwconv_call_cost.py`).
+    Each thread fills its own block."""
 
     def __init__(self, symbol: str, argtypes: list, packed: int = 0):
         self.symbol = symbol

@@ -39,7 +39,7 @@ def dwconv_plain(x, kernel, dilation: int, pad_l: int, pad_r: int):
 _TYPES = (torch.float32, torch.bfloat16)
 # one block of 13 int64 values (csrc/dwconv.cu): at the ASR path's small
 # shapes the host's cost per call sets the time, and ctypes converts one
-# pointer faster than thirteen arguments
+# pointer faster than thirteen arguments (`tools/dwconv_call_cost.py`)
 _fn = declare("td_dwconv", [ctypes.c_void_p], packed=13)
 
 
@@ -79,7 +79,9 @@ class Taps(NamedTuple):
     flag, and the largest dilation whose tile fits in shared memory. The
     module that owns the taps makes them (`prepare_taps`) when its engine
     places it, so a call on the card validates x with a few attribute reads
-    and copies nothing."""
+    and copies nothing. The kernel reads the taps at `ptr`: the model's
+    weights are frozen once they are made, and a model loaded, moved or
+    cast afterwards needs them made again."""
 
     weight: torch.Tensor
     shape: tuple
@@ -102,20 +104,20 @@ def prepare_taps(kernel: torch.Tensor) -> Taps:
                 int(w.dtype is torch.bfloat16), max_dilation)
 
 
-def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0):
-    """Depthwise conv of x (B, T, C*m) with kernel (K, m, C), a tensor or
-    prepared `Taps`. CPU tensors run `dwconv_plain`; CUDA tensors launch the
-    kernel (float32 or bfloat16), with the taps already in x's type on its
-    card: the call copies nothing."""
-    taps = kernel if isinstance(kernel, Taps) else None
+def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,
+           taps: Taps | None = None):
+    """Depthwise conv of x (B, T, C*m) with kernel (K, m, C). CPU tensors
+    run `dwconv_plain` on `kernel`; CUDA tensors launch the kernel (float32
+    or bfloat16) on `taps` alone, the kernel's taps made once in x's type
+    on its card (`prepare_taps`), and raise without them: the call copies
+    nothing."""
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return dwconv_plain(x, kernel if taps is None else taps.weight, dilation, pad_l,
-                                pad_r)
+            return dwconv_plain(x, kernel, dilation, pad_l, pad_r)
         raise RuntimeError(f"dwconv runs on cpu or cuda, not {x.device}")
     if taps is None:
-        _check(x, kernel, dilation, pad_l, pad_r)
-        taps = prepare_taps(kernel)
+        raise ValueError("dwconv on the card takes taps made once by prepare_taps "
+                         "(engines make them with ops.kernels.prepare_kernels)")
     k, m, c = taps.shape
     b, t, cin = x.shape
     t_out = t + pad_l + pad_r - (k - 1) * dilation

@@ -70,7 +70,9 @@ class FFConvMOperands(NamedTuple):
     type on one card: W as bf16 (cout, cin) halves (w_lo None when W is
     bf16-exact in that type, so its pass is skipped), and the norm and
     bias vectors and the (17, cout) taps in float32, rounded to the
-    activation type as `ffconvm_plain` rounds them."""
+    activation type as `ffconvm_plain` rounds them. They are copies: the
+    model's weights are frozen once its engine has made them, and a model
+    loaded, moved or cast afterwards needs them made again."""
 
     dtype: torch.dtype
     layernorm: bool
@@ -85,11 +87,18 @@ class FFConvMOperands(NamedTuple):
 def prepare_ffconvm(na, nb, weight, bias, dwk, norm: str, dtype: torch.dtype,
                     device=None) -> FFConvMOperands:
     """The kernel's operands for activations of `dtype` (float32 or
-    bfloat16) on `device` (default: the weight's)."""
+    bfloat16) on `device` (default: the weight's); raises on a shape the
+    kernel cannot take."""
     if norm not in NORMS:
         raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
     if dtype not in _TYPES:
         raise TypeError(f"ffconvm kernel takes float32 or bfloat16, got {dtype}")
+    cout, cin = weight.shape
+    if cin % 8 or cout % 8:
+        raise ValueError(f"weight must be (cout, cin) with cin and cout multiples of 8, "
+                         f"got {tuple(weight.shape)}")
+    if tuple(dwk.shape) != (TAPS, 1, cout):
+        raise ValueError(f"dwk must be ({TAPS}, 1, {cout}), got {tuple(dwk.shape)}")
     device = weight.device if device is None else torch.device(device)
 
     def f32(a, *shape):
@@ -106,23 +115,11 @@ _fn = declare("td_ffconvm", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
               + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _check(x, weight, dwk, norm):
-    if norm not in NORMS:
-        raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
-    if x.dtype not in _TYPES:
-        raise TypeError(f"ffconvm kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous (B, T, cin) tensor, got {tuple(x.shape)}")
-    cout, cin = weight.shape
-    if cin != x.shape[-1] or cin % 8 or cout % 8:
-        raise ValueError(f"weight must be (cout, {x.shape[-1]}) with cin and cout "
-                         f"multiples of 8, got {tuple(weight.shape)}")
-    if tuple(dwk.shape) != (TAPS, 1, cout):
-        raise ValueError(f"dwk must be ({TAPS}, 1, {cout}), got {tuple(dwk.shape)}")
-
-
-def _check_prepared(x, ops: FFConvMOperands, norm: str) -> None:
+def _check_prepared(x, ops: FFConvMOperands | None, norm: str) -> None:
     """Attribute reads only: the operands were made for x's type, card and width."""
+    if ops is None:
+        raise ValueError("ffconvm on the card takes operands made once by prepare_ffconvm "
+                         "(engines make them with ops.kernels.prepare_kernels)")
     if ops.dtype != x.dtype or ops.w_hi.get_device() != x.get_device() \
             or ops.layernorm != (norm == "layernorm"):
         raise ValueError(f"ffconvm operands were prepared for {ops.dtype} "
@@ -135,17 +132,14 @@ def _check_prepared(x, ops: FFConvMOperands, norm: str) -> None:
 
 def ffconvm(x, na, nb, weight, bias, dwk, norm: str = "scalenorm",
             prepared: FFConvMOperands | None = None):
-    """Fused FFConvM. CPU tensors run `ffconvm_plain`; CUDA tensors launch
-    the kernel (float32 or bfloat16, float32 accumulation) on `prepared`
-    operands (`prepare_ffconvm`), which a model makes once; without them
-    the call prepares its own."""
+    """Fused FFConvM. CPU tensors run `ffconvm_plain` on the weights given;
+    CUDA tensors launch the kernel (float32 or bfloat16, float32
+    accumulation) on the `prepared` operands alone (`prepare_ffconvm`),
+    which the model made once, and raise without them."""
     if not x.is_cuda:
         if x.device.type == "cpu":
             return ffconvm_plain(x, na, nb, weight, bias, dwk, norm)
         raise RuntimeError(f"ffconvm runs on cpu or cuda, not {x.device}")
-    if prepared is None:
-        _check(x, weight, dwk, norm)
-        prepared = prepare_ffconvm(na, nb, weight, bias, dwk, norm, x.dtype, x.device)
     _check_prepared(x, prepared, norm)
     b, t, cin = x.shape
     cout = prepared.w_hi.shape[0]

@@ -166,14 +166,20 @@ def test_wrappers_count_only_kernel_launches(rng):
 
 
 def test_kernel_wrappers_reject_bad_cuda_inputs():
-    """The CUDA branch validates before it builds or launches anything."""
-    x = torch.zeros(1, 8, 32)
+    """The CUDA branch validates before it builds or launches anything: FFConvM's
+    weights when its operands are made, x against them at every call."""
+    g, z = torch.ones(1), torch.zeros(1)
     with pytest.raises(ValueError, match="dwk"):
-        ffmod._check(x, torch.zeros(64, 32), torch.zeros(9, 1, 64), "scalenorm")
+        ffmod.prepare_ffconvm(g, z, torch.zeros(64, 32), torch.zeros(64), torch.zeros(9, 1, 64),
+                              "scalenorm", torch.float32)
     with pytest.raises(ValueError, match="norm"):
-        ffmod._check(x, torch.zeros(64, 32), torch.zeros(17, 1, 64), "rmsnorm")
+        ffmod.prepare_ffconvm(g, z, torch.zeros(64, 32), torch.zeros(64),
+                              torch.zeros(17, 1, 64), "rmsnorm", torch.float32)
     with pytest.raises(TypeError):
-        ffmod._check(x.half(), torch.zeros(64, 32).half(), torch.zeros(17, 1, 64), "scalenorm")
+        ffmod.prepare_ffconvm(g, z, torch.zeros(64, 32), torch.zeros(64),
+                              torch.zeros(17, 1, 64), "scalenorm", torch.float16)
+    with pytest.raises(ValueError, match="prepare_ffconvm"):
+        ffmod._check_prepared(torch.zeros(1, 8, 32), None, "scalenorm")
     q = torch.zeros(1, 2, 16, 8)
     v = torch.zeros(1, 2, 16, 24)
     with pytest.raises(ValueError, match="mask"):
@@ -380,8 +386,7 @@ def test_prepared_ffconvm_operands_are_checked(rng):
     with pytest.raises(TypeError):
         ffmod.prepare_ffconvm(*args, torch.float16)
     with pytest.raises(ValueError, match="multiples of 8"):
-        ffmod._check(t(np.zeros((1, 4, 60), np.float32)), torch.zeros(64, 60),
-                     torch.zeros(17, 1, 64), "scalenorm")
+        ffmod.prepare_ffconvm(*args[:2], torch.zeros(64, 60), *args[3:], torch.float32)
 
 
 def test_dwconv_taps_must_be_ready():
@@ -416,16 +421,19 @@ def test_packed_entry_fills_one_block_per_call():
 
 
 def test_prepared_taps_match_tensor_taps(rng):
-    """Taps made once (`prepare_taps`) give the tensor's result on the CPU,
-    through `dw_conv1d`'s padding forms."""
+    """Taps made once (`prepare_taps`) hold the tensor's values contiguous in
+    the kernel's (K, m, C) layout; on the CPU `dw_conv1d` takes them beside
+    the tensor, through its padding forms, and reads the tensor."""
     x = rng.standard_normal((2, 90, 64)).astype(np.float32)
     w = (rng.standard_normal((13, 1, 64)) * 0.3).astype(np.float32)
-    taps = dwmod.prepare_taps(torch.from_numpy(w).permute(2, 1, 0).contiguous().permute(2, 1, 0))
+    strided = torch.from_numpy(w).permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    taps = dwmod.prepare_taps(strided)
     assert taps.shape == (13, 1, 64) and taps.device == -1 and taps.dtype == torch.float32
     assert taps.weight.is_contiguous() and taps.ptr == taps.weight.data_ptr()
+    torch.testing.assert_close(taps.weight, torch.from_numpy(w), rtol=0, atol=0)
     for pad in ("SAME", (10, 2)):
         want = dw_conv1d(torch.from_numpy(x), torch.from_numpy(w), padding=pad)
-        got = dw_conv1d(torch.from_numpy(x), taps, padding=pad)
+        got = dw_conv1d(torch.from_numpy(x), strided, padding=pad, taps=taps)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="kernel must be"):
         dwmod.prepare_taps(torch.zeros(13, 64))
@@ -440,3 +448,29 @@ def test_prepared_taps_dilation_limit_matches_shared_memory(k, m):
     assert dwmod.smem_bytes(k, m, d) <= dwmod.MAX_SMEM
     if k > 1:
         assert dwmod.smem_bytes(k, m, d + 1) > dwmod.MAX_SMEM
+
+
+def test_chip_smoke_plain_patch_takes_the_models_calls(rng):
+    """chip_smoke.py's plain paths patch the wrappers with their plain
+    versions: the patches take the calls the models make (prepared
+    operands and taps included) and give the wrappers' CPU results."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwconv_op
+
+    x, na, nb, wk, wb, dwk = map(torch.from_numpy, _ff_inputs(rng, 1, 30, 32, 64, "layernorm"))
+    w = wk.T.contiguous()
+    ops = ffmod.prepare_ffconvm(na, nb, w, wb, dwk, "layernorm", torch.float32)
+    taps_w = torch.from_numpy((rng.standard_normal((13, 1, 32)) * 0.3).astype(np.float32))
+    taps = dwmod.prepare_taps(taps_w)
+    want_ff = ffconvm(x, na, nb, w, wb, dwk, "layernorm", prepared=ops)
+    want_dw = dw_conv1d(x, taps_w, padding=(10, 2), taps=taps)
+    with chip_smoke.plain_kernels():
+        assert separation.ffconvm is not ffconvm and dwconv_op.dwconv is not dwconv
+        got_ff = separation.ffconvm(x, na, nb, w, wb, dwk, "layernorm", prepared=ops)
+        got_dw = dw_conv1d(x, taps_w, padding=(10, 2), taps=taps)
+    torch.testing.assert_close(got_ff, want_ff, rtol=0, atol=0)
+    torch.testing.assert_close(got_dw, want_dw, rtol=0, atol=0)
