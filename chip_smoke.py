@@ -9,10 +9,10 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-Each phase prints one JSON line with `elapsed_s` since the start: the build
-and, where `cuobjdump` exists, the tensor-core instructions of the built
-FFConvM kernels; each kernel against its plain version at the main path's
-shapes and types, with its host-inclusive time (`ms`), its device time from
+Each phase prints one JSON line with `elapsed_s` since the start: the build,
+each kernel's registers and spills from ptxas and, by `cuobjdump`, the
+tensor-core instructions of the built FFConvM and FLASH kernels; each kernel
+against its plain version at the main path's shapes and types, with its host-inclusive time (`ms`), its device time from
 20 launches replayed in one CUDA graph (`device_ms`) and its bounds; the
 separator (launch counts, wall times, a profiler breakdown of one call,
 agreement with the plain paths) and the ASR stage. The line before the last
@@ -227,11 +227,29 @@ def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
     return rows
 
 
-def ffconvm_build_report() -> dict:
-    """Diagnostics of the built FFConvM kernels: registers and spills from
-    ptxas's report of the build, and the tensor-core instructions in the
-    library by cuobjdump where the toolkit has it (the kernel's wgmma shows
-    as HGMMA). A missing tool is said, not skipped silently."""
+# the kernels of csrc/ whose ptxas and SASS counts the build report gives
+BUILD_KERNELS = ("ffconvm_kernel", "flash_kernel", "dwconv_kernel")
+# mangled-name marks of the gated FLASH instantiations, which must run on
+# the tensor cores
+GATED_FLASH = {"float32": "flash_kernelIfLb1E", "bfloat16": "flash_kernelI13__nv_bfloat16Lb1E"}
+
+
+def flash_smem_bytes(g: int, d: int, gated: bool, dtype_name: str) -> int:
+    """csrc/flash_gated.cu's smem_bytes: [A | lq] as bf16 halves, two ring
+    stages of v and u (128 e columns x 64 deep), 1024 bytes of alignment."""
+    parts = 2 if dtype_name == "float32" else 1
+    return parts * ((g + (d if gated else 0)) // 64) * 8192 + 2 * parts * 2 * 16384 + 1024
+
+
+def build_report() -> dict:
+    """Diagnostics of the built kernels: registers, spills and shared memory
+    from ptxas's report of the build, and the tensor-core instructions in
+    the library by cuobjdump (the kernels' wgmma shows as HGMMA; a
+    WARPGROUP.DEPBAR waits for the products issued before it, so one for
+    each HGMMA means they run one at a time). FFConvM's lines keep their
+    phase; FLASH's and dwconv's follow in a second one, with FLASH's dynamic
+    shared memory at the main path's shape. Fails if a gated FLASH
+    instantiation holds no HGMMA, or cuobjdump is missing."""
     from targetdiarization_tpu_torch.ops.kernels import _build
 
     report: dict = {}
@@ -240,7 +258,8 @@ def ffconvm_build_report() -> dict:
     lines = open(log).read().splitlines() if os.path.exists(log) else []
     for line in lines:
         if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "ffconvm_kernel" in line else None
+            fn = line.split("'")[1]
+            fn = fn if any(k in fn for k in BUILD_KERNELS) else None
         elif fn and ("Used" in line or "spill" in line):
             report.setdefault(fn, {}).setdefault("ptxas", []).append(line.split(":")[-1].strip())
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -251,18 +270,45 @@ def ffconvm_build_report() -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                fn = fn if "ffconvm_kernel" in fn else None
+                fn = fn if any(k in fn for k in BUILD_KERNELS) else None
                 if fn:
-                    report.setdefault(fn, {})["sass"] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+                    report.setdefault(fn, {})["sass"] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0,
+                                                         "WARPGROUP.DEPBAR": 0}
             elif fn:
                 counts = report[fn]["sass"]
                 for op in counts:
                     if f" {op}." in line or f" {op} " in line:
                         counts[op] += 1
-    emit("ffconvm_build", ptxas_log=log if lines else None,
-         cuobjdump=tool if os.path.exists(tool) else f"{tool} not found: no instruction counts",
-         kernels=report)
+    found = os.path.exists(tool)
+    cuobjdump = tool if found else f"{tool} not found: no instruction counts"
+    emit("ffconvm_build", ptxas_log=log if lines else None, cuobjdump=cuobjdump,
+         kernels={n: r for n, r in report.items() if "ffconvm_kernel" in n})
+    smem = {f"flash {form} {t}": flash_smem_bytes(256, 128, form == "gated", t)
+            for form in ("gated", "two-output") for t in ("float32", "bfloat16")}
+    emit("kernel_build", cuobjdump=cuobjdump, flash_dynamic_smem_bytes_g256_d128=smem,
+         kernels={n: r for n, r in report.items() if "ffconvm_kernel" not in n})
+    if not found:
+        raise AssertionError(f"{cuobjdump}: cannot show that gated FLASH runs on the tensor cores")
+    for dname, mark in GATED_FLASH.items():
+        hgmma = [r.get("sass", {}).get("HGMMA", 0) for n, r in report.items() if mark in n]
+        if not hgmma or min(hgmma) == 0:
+            raise AssertionError(f"gated FLASH ({dname}) holds no HGMMA: {hgmma}")
     return report
+
+
+def design_bound(mma_flops: float, flops: float, nbytes: float, dtype_name: str) -> dict:
+    """FLASH's bounds: its products on the bf16 tensor cores (three split
+    passes for float32, one for bf16; `tensor_core_ms`), its bytes
+    (`bytes_ms`), and the same work on the float32 FMA units
+    (`fma_bound_ms`). `bound_ms` is the design's: the larger of the first two."""
+    passes = 3 if dtype_name == "float32" else 1
+    tc_ms = passes * mma_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    fma_ms, fma_by = bound(flops, nbytes, "float32")
+    return {"tensor_core_passes": passes, "tensor_core_ms": tc_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(tc_ms, bytes_ms),
+            "bound_by": "operations" if tc_ms >= bytes_ms else "bytes",
+            "fma_bound_ms": fma_ms, "fma_bound_by": fma_by}
 
 
 def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
@@ -291,16 +337,16 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
         dname = str(dtype).split(".")[1]
         isz = q.element_size()
         bg = batch * n_groups
-        flops = 2.0 * bg * g * (g * d + 2 * (g + d) * e) + 6.0 * bg * g * e
+        mma_flops = 2.0 * bg * g * (g * d + 2 * (g + d) * e)
+        flops = mma_flops + 6.0 * bg * g * e
         nbytes = isz * (bg * g * (3 * d + 3 * e + 1) + 2 * batch * d * e)
-        bound_ms, bound_by = bound(flops, nbytes, dname)
         row = {"dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d, "e": e,
                "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(lambda: flash_gated(*args)),
                "device_ms": graph_ms(lambda: flash_gated(*args)),
                "plain_ms": time_ms(lambda: flash_gated_plain(*args), iters=5),
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+               **design_bound(mma_flops, flops, nbytes, dname), "library_ms": None}
         emit("flash_gated", **row)
         if not rel <= TOL[dname]:
             raise AssertionError(f"flash_gated {dname}: kernel vs plain rel err "
@@ -421,14 +467,13 @@ def check_flash_group(batch: int = 2, n_groups: int = 79, g: int = 256, d: int =
         # targetdiarization_tpu/ops/pallas/flash.py:223-227's counts, at this type's size
         flops = 2.0 * bg * (g * g * d + 2 * g * g * e)
         nbytes = isz * bg * (2 * g * d + 4 * g * e + g)
-        bound_ms, bound_by = bound(flops, nbytes, dname)
         row = {"dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d, "e": e,
                "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(lambda: flash_group_attention(*args)),
                "device_ms": graph_ms(lambda: flash_group_attention(*args)),
                "plain_ms": time_ms(lambda: flash_group_plain(*args), iters=5),
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+               **design_bound(flops, flops, nbytes, dname), "library_ms": None}
         emit("flash_group", **row)
         if not rel <= TOL[dname]:
             raise AssertionError(f"flash_group {dname}: kernel vs plain rel err "
@@ -898,9 +943,10 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
     flash_gated and the separator's dwconv in float32, each summed over one
     512/24 layer pair's calls at the 160k bucket (B 2, T 20224);
     flash_group, which no model calls, at the gated kernel's shape in bf16.
-    The bound is that of the calls taken together (for ffconvm the larger
-    of its tensor-core passes, its taps on the float32 units and its
-    bytes; `fma_bound_ms` is the same work on the float32 units alone);
+    The bound is that of the calls taken together (for ffconvm and FLASH
+    the larger of their tensor-core passes, ffconvm's taps on the float32
+    units and their bytes; `fma_bound_ms` is the same work on the float32
+    units alone; dwconv's float32 FMA work or its bytes);
     `launches` sums the main-path runs of both slices, `launches_by_path`
     splits them."""
     per_layer = {"to_hidden": 1, "to_qk": 1, "to_out": 1, "to_u": 2,  # to_v = to_u's shape
@@ -910,9 +956,9 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
         sel = [(r, weight(r)) for r in rows[kind] if weight(r)]
 
         def total(key):
-            return sum(r[key] * w for r, w in sel)
+            return sum(r.get(key, 0.0) * w for r, w in sel)
 
-        if peak is None:  # ffconvm: the design's bound, its three parts summed
+        if peak is None:  # the design's bound, its parts summed
             ops_ms = max(total("tensor_core_ms"), total("taps_ms"))
             bound_ms = max(ops_ms, total("bytes_ms"))
             bound_by = "operations" if ops_ms >= total("bytes_ms") else "bytes"
@@ -938,7 +984,7 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
               "float32, bf16-exact weights", pair),
         entry("flash_gated", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:97", "flash_gated",
-              lambda r: r["dtype"] == "float32", "float32", pair, "float32"),
+              lambda r: r["dtype"] == "float32", "float32", pair),
         entry("dwconv", "targetdiarization_tpu_torch/csrc/dwconv.cu",
               "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
               lambda r: per_layer.get(r["shape"], 0) if r["dtype"] == "float32" else 0,
@@ -946,7 +992,7 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
         entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group",
               lambda r: r["dtype"] == "bfloat16", "bfloat16",
-              "B 2, G 79, g 256, d 128, e 1024 (public op; no model calls it)", "bfloat16"),
+              "B 2, G 79, g 256, d 128, e 1024 (public op; no model calls it)"),
     ]}
 
 
@@ -956,7 +1002,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = environment()
-    ffconvm_build_report()
+    build_report()
     rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
             "dwconv": check_dwconv(), "flash_group": check_flash_group()}
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr()}

@@ -44,8 +44,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace td;  // the Hopper primitives of hopper.cuh
 
 constexpr int kGroups = 3;                      // consumer warpgroups
 constexpr int kThreads = 128 * kGroups;         // 384
@@ -92,77 +95,6 @@ __global__ void __launch_bounds__(256) row_stats_kernel(
     }
     for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
     if (lane == 0) stats[row] = make_float2(mean, 1.0f / sqrtf(q / cin + eps));
-}
-
-// ---- Hopper primitives ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (the leading offset is unused in this mode).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-           (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// acc (64 x 128 f32 over the warpgroup) += A (64 x 16) . B (128 x 16)^T
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from touching the accumulators before the wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-// generic-proxy writes to shared memory made visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) = hi + lo with hi, lo bf16 pairs
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    hi = *reinterpret_cast<uint32_t*>(&h);
-    lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // T float: the A operand is split (two passes); kLoB: W_lo is given (one more pass)

@@ -17,14 +17,28 @@ import torch.nn.functional as F
 
 from ._build import declare
 
-# mirrors csrc/dwconv.cu: 64 output rows by 32 channels a block, input
-# rows plus halo and the weights in shared memory as float32
-ROWS, CHANNELS = 64, 32
+# mirrors csrc/dwconv.cu: a block stages at most ROWS output rows (8 d
+# when the dilation d is above 16) plus the (K-1) d halo rows of up to
+# CHANNELS input channels, and its taps, K rounded up to a multiple of
+# WINDOW, x CHANNELS as float32; the widest case is float32, 4 bytes an
+# element (a second staging buffer is added only where it fits)
+ROWS, CHANNELS, WINDOW = 128, 128, 8
 MAX_SMEM = 232448
+# the kernel's channel vectors: m output-channel groups of 4 input channels,
+# whole 16-byte copies of each row
+KERNEL_M = (1, 2, 4)
 
 
 def smem_bytes(k: int, m: int, dilation: int) -> int:
-    return ((ROWS + (k - 1) * dilation) * CHANNELS * m + k * m * CHANNELS) * 4
+    """The most shared memory a block takes for K taps at this dilation (m
+    does not change it: a block's CHANNELS input channels are CHANNELS / m
+    groups)."""
+    k_padded = -(-k // WINDOW) * WINDOW
+    return ((max(ROWS, 8 * dilation) + (k - 1) * dilation) * CHANNELS + k_padded * CHANNELS) * 4
+
+
+def _kernel_takes(m: int, cin: int, dtype: torch.dtype) -> bool:
+    return m in KERNEL_M and cin % (16 // (2 if dtype is torch.bfloat16 else 4)) == 0
 
 
 def dwconv_plain(x, kernel, dilation: int, pad_l: int, pad_r: int):
@@ -60,6 +74,9 @@ def _check(x, kernel, dilation, pad_l, pad_r) -> int:
         raise ValueError(f"the taps must be a contiguous (K, m, C) {x.dtype} tensor on "
                          f"{x.device}, got {kernel.dtype} on {kernel.device}: the module "
                          "that owns them holds them in the activation type")
+    if not _kernel_takes(m, x.shape[-1], x.dtype):
+        raise ValueError(f"dwconv kernel takes m in {KERNEL_M} and C*m a multiple of "
+                         f"{16 // x.element_size()} for {x.dtype}, got m {m}, C*m {x.shape[-1]}")
     if dilation < 1 or pad_l < 0 or pad_r < 0:
         raise ValueError(f"bad dilation {dilation} or padding ({pad_l}, {pad_r})")
     if smem_bytes(k, m, dilation) > MAX_SMEM:
@@ -76,7 +93,8 @@ class Taps(NamedTuple):
     """A conv's taps held once in the kernel's layout and type: `weight`
     (K, m, C) contiguous, in the activation type, on its card (device -1 on
     the CPU), with what a call needs read once: its shape, address, type
-    flag, and the largest dilation whose tile fits in shared memory. The
+    flag, the largest dilation whose tile fits in shared memory, and
+    whether the kernel takes this m and width in this type. The
     module that owns the taps makes them (`prepare_taps`) when its engine
     places it, so a call on the card validates x with a few attribute reads
     and copies nothing. The kernel reads the taps at `ptr`: the model's
@@ -90,18 +108,19 @@ class Taps(NamedTuple):
     ptr: int
     is_bf16: int
     max_dilation: int
+    kernel_ok: bool
 
 
 def prepare_taps(kernel: torch.Tensor) -> Taps:
     if kernel.dim() != 3:
         raise ValueError(f"kernel must be (K, m, C), got {tuple(kernel.shape)}")
     w = kernel.detach().contiguous()
-    k, m, _ = w.shape
-    # smem_bytes(k, m, d) <= MAX_SMEM, solved for d
-    room = MAX_SMEM // (4 * CHANNELS * m) - ROWS - k
-    max_dilation = room // (k - 1) if k > 1 else room
+    k, m, c = w.shape
+    max_dilation = 0  # the largest d with smem_bytes(k, m, d) <= MAX_SMEM
+    while smem_bytes(k, m, max_dilation + 1) <= MAX_SMEM:
+        max_dilation += 1
     return Taps(w, (k, m, w.shape[2]), w.dtype, w.get_device(), w.data_ptr(),
-                int(w.dtype is torch.bfloat16), max_dilation)
+                int(w.dtype is torch.bfloat16), max_dilation, _kernel_takes(m, m * c, w.dtype))
 
 
 def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,
@@ -121,7 +140,7 @@ def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,
     k, m, c = taps.shape
     b, t, cin = x.shape
     t_out = t + pad_l + pad_r - (k - 1) * dilation
-    if not (x.dtype is taps.dtype and cin == m * c and x.is_contiguous()
+    if not (taps.kernel_ok and x.dtype is taps.dtype and cin == m * c and x.is_contiguous()
             and x.get_device() == taps.device and t_out > 0
             and 1 <= dilation <= taps.max_dilation and pad_l >= 0 and pad_r >= 0):
         _check(x, taps.weight, dilation, pad_l, pad_r)  # raises with the reason

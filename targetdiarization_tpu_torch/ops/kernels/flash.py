@@ -7,7 +7,10 @@ public two-output op, out_v = A v and out_u = A u). Both kernels are
 `csrc/flash_gated.cu`; `flash_gated_plain` and `flash_group_plain` are
 the same functions in plain PyTorch, following the TPU kernels'
 arithmetic: A in float32, rounded to v's type before the products,
-float32 accumulation, the gate in float32, outputs in v's type.
+float32 accumulation, the gate in float32, outputs in v's type. The
+kernel runs both products on the tensor cores, float32 operands as three
+passes over their bf16 halves: it agrees with the plain version within
+chip_smoke.py's limit of 1e-4 of max|out| in float32, not bit for bit.
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ def _check(q, k, v, u, mask, lq=None, lin_kv=None, lin_ku=None):
                 or t.device != q.device:
             raise ValueError(f"{name} must be a contiguous {shape} {q.dtype} tensor on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if g % 64 or g < d or g > 256 or d != 128 or e % 128:
+        raise ValueError(f"flash kernels take g a multiple of 64 in [128, 256], d 128 and e "
+                         f"a multiple of 128 (csrc/flash_gated.cu), got g {g}, d {d}, e {e}")
 
 
 def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):

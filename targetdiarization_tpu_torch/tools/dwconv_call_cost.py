@@ -39,8 +39,8 @@ extern "C" int td_dwconv_typed(const void* x, const void* w, void* out, int batc
                                int is_bf16, void* stream) {{
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)
-        return launch<__nv_bfloat16>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
-    return launch<float>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
+        return launch_m<__nv_bfloat16>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
+    return launch_m<float>(x, w, out, batch, t_in, t_out, c, m, k, dil, pad_l, s);
 }}
 """
 

@@ -474,3 +474,115 @@ def test_chip_smoke_plain_patch_takes_the_models_calls(rng):
         got_dw = dw_conv1d(x, taps_w, padding=(10, 2), taps=taps)
     torch.testing.assert_close(got_ff, want_ff, rtol=0, atol=0)
     torch.testing.assert_close(got_dw, want_dw, rtol=0, atol=0)
+
+
+# ---------------- gated FLASH's float32 split on the tensor cores ----------------
+
+
+def _split_product(a, b, passes):
+    """a @ b as the kernel's tensor cores run it: both operands split into
+    bf16 halves, each bf16 x bf16 product exact, summed in float64 here
+    (the card sums in float32); passes 1 is hi.hi, 3 adds hi.lo and lo.hi."""
+    a_hi, a_lo = (t.double() for t in ffmod.split_bf16(a))
+    b_hi, b_lo = (t.double() for t in ffmod.split_bf16(b))
+    acc = a_hi @ b_hi
+    if passes == 3:
+        acc = acc + a_hi @ b_lo + a_lo @ b_hi
+    return acc.float()
+
+
+def _emulate_flash_gated(q, k, v, u, mask, lq, kv, ku, passes):
+    """csrc/flash_gated.cu's float32 arithmetic: S = q k^T in `passes` split
+    passes, A = relu(S / g)^2 * mask in float32, then A, lq, v, u, lin_kv
+    and lin_ku split for [A | lq] . [v ; lin_kv] and . [u ; lin_ku], the
+    gate in float32."""
+    g = q.shape[-2]
+    s = _split_product(q, k.transpose(-1, -2), passes)
+    attn = torch.relu(s * (1.0 / g)).square() * mask
+    a_lq = torch.cat([attn, lq], dim=-1)
+    att_v = _split_product(a_lq, torch.cat([v, kv[:, None]], dim=-2), passes)
+    att_u = _split_product(a_lq, torch.cat([u, ku[:, None]], dim=-2), passes)
+    return (att_u * v) * torch.sigmoid(att_v * u)
+
+
+@pytest.mark.parametrize("qk_scale", [4.0, 1.0])
+def test_flash_split_passes_meet_float32_limit(qk_scale, rng):
+    """Three bf16 passes (hi.hi + hi.lo + lo.hi) of both products stay within
+    the card check's 1e-4 limit of a float64 `flash_gated_plain` at the main
+    path's group shape (g 256, d 128, e 1024) with a masked tail of 225
+    keys, at chip_smoke.py's input scale (q, k x 4) and at unit scale; one
+    bf16 pass alone misses it. So the kernel runs three passes, no lo.lo."""
+    q, k, v, u, mask, lq, kv, ku = _gated_inputs(rng, 1, 1, 256, 128, 1024, masked_cols=225)
+    q, k = q * qk_scale, k * qk_scale
+    args = [torch.from_numpy(a) for a in (q, k, v, u, mask, lq, kv, ku)]
+    qd, kd, vd, ud, md, lqd, kvd, kud = (a.double() for a in args)
+    attn = torch.relu(qd @ kd.transpose(-1, -2) / 256).square() * md
+    att_v = attn @ vd + lqd @ kvd[:, None]
+    att_u = attn @ ud + lqd @ kud[:, None]
+    exact = (att_u * vd) * torch.sigmoid(att_v * ud)
+    limit = 1e-4 * exact.abs().max()
+    three = _emulate_flash_gated(*args, passes=3).double()
+    assert (three - exact).abs().max() <= limit
+    one = _emulate_flash_gated(*args, passes=1).double()
+    assert (one - exact).abs().max() > limit
+    torch.testing.assert_close(flash_gated(*args).double(), exact, rtol=0,
+                               atol=float(limit))
+
+
+def test_flash_wrapper_refuses_shapes_the_kernel_does_not_take():
+    """The CUDA branch takes g a multiple of 64 in [d, 256], d 128 and e a
+    multiple of 128 (csrc/flash_gated.cu); both shipped separators fit."""
+    def args(g, d, e, gated=True):
+        q, v = torch.zeros(1, 2, g, d), torch.zeros(1, 2, g, e)
+        extra = (q, torch.zeros(1, d, e), torch.zeros(1, d, e)) if gated else ()
+        return (q, q, v, v, torch.zeros(1, 2, 1, g), *extra)
+
+    for g, e in ((256, 1024), (128, 512)):
+        flmod._check(*args(g, 128, e))
+        flmod._check(*args(g, 128, e, gated=False))
+    for g, d, e in ((256, 64, 1024), (96, 128, 1024), (512, 128, 1024), (256, 128, 1000),
+                    (64, 128, 1024)):
+        with pytest.raises(ValueError, match="flash kernels take"):
+            flmod._check(*args(g, d, e))
+
+
+@pytest.mark.parametrize("m,c,dtype,ok", [
+    (1, 256, torch.float32, True), (2, 256, torch.float32, True), (4, 16, torch.float32, True),
+    (1, 64, torch.bfloat16, True), (3, 32, torch.float32, False), (1, 6, torch.float32, False),
+    (1, 12, torch.bfloat16, False),
+])
+def test_dwconv_kernel_takes_its_vector_widths(m, c, dtype, ok):
+    """The kernel reads 4 input channels a thread and stages rows in 16-byte
+    copies: m 1, 2 or 4 and C*m a multiple of 4 (float32) or 8 (bf16). Taps it
+    cannot take are marked, and a call on the card then raises the reason."""
+    taps = dwmod.prepare_taps(torch.zeros(13, m, c, dtype=dtype))
+    assert taps.kernel_ok is ok
+    assert taps.max_dilation >= 1  # shared memory does not refuse them
+    x = torch.zeros(1, 50, m * c, dtype=dtype)
+    if ok:
+        assert dwmod._check(x, taps.weight, 1, 6, 6) == 50
+    else:
+        with pytest.raises(ValueError, match="dwconv kernel takes m"):
+            dwmod._check(x, taps.weight, 1, 6, 6)
+
+
+def test_flash_phase_probe_finds_its_anchors():
+    """tools/flash_phases.py instruments a copy of csrc/flash_gated.cu at
+    fixed anchors: each is found once, so the probe follows the source."""
+    from targetdiarization_tpu_torch.tools.flash_phases import instrument
+
+    with open(os.path.join(_build.CSRC, "flash_gated.cu")) as f:
+        text = instrument(f.read())
+    assert text.count("TICK(") == 10 and 'extern "C" int td_flash_phases' in text
+    with pytest.raises(ValueError, match="anchor"):
+        instrument(text.replace("    fetch(0);", "    fetch(0) ;"))
+
+
+def test_tensor_core_kernels_share_the_hopper_header():
+    """FFConvM and FLASH take their wgmma primitives from csrc/hopper.cuh;
+    neither keeps a copy of its own."""
+    for name in ("ffconvm.cu", "flash_gated.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text = f.read()
+        assert '#include "hopper.cuh"' in text
+        assert "uint64_t gmma_desc(" not in text and "void split_bf16(" not in text
