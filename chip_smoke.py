@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: build its CUDA kernels, hold each against
 its plain PyTorch version, drive `AudioProcessor.separate_speaker` on the
-512/24 MossFormer2 (`checkpoints/sep-bootstrap-512`), and drive the ASR stage
+512/24 MossFormer2 (`checkpoints/sep-bootstrap-512`), drive the ASR stage
 (`ASRProcessor` on `checkpoints/{vad,asr,punc}-bootstrap`) on synthetic
-speech of the kind the bootstrap models were trained on.
+speech of the kind the bootstrap models were trained on, and drive the
+front end (`FusedFrontend.analyze` and `enroll`, and
+`AudioProcessor.denoise_vocal`, on `checkpoints/{den,vad,seg,spk}-bootstrap`)
+on a synthetic two-voice conversation.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -15,7 +18,8 @@ tensor-core instructions of the built FFConvM and FLASH kernels; each kernel
 against its plain version at the main path's shapes and types, with its host-inclusive time (`ms`), its device time from
 20 launches replayed in one CUDA graph (`device_ms`) and its bounds; the
 separator (launch counts, wall times, a profiler breakdown of one call,
-agreement with the plain paths) and the ASR stage. The line before the last
+agreement with the plain paths), the ASR stage and the front end. The line
+before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits nonzero and prints no result. It needs CUDA and the repository: with no
@@ -37,6 +41,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "checkpoints", "sep-bootstrap-512")
 ASR_CHECKPOINTS = {name: os.path.join(ROOT, "checkpoints", f"{name}-bootstrap")
                    for name in ("vad", "asr", "punc")}
+FRONTEND_CHECKPOINTS = {name: os.path.join(ROOT, "checkpoints", f"{name}-bootstrap")
+                        for name in ("den", "vad", "seg", "spk")}
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, float32
 # outside the tensor cores, HBM3 bandwidth
@@ -936,6 +942,190 @@ def check_asr() -> dict:
     return launches
 
 
+# ---------------- the slice: FusedFrontend (preprocess, VAD, segmentation, embeddings) ----------------
+
+
+def voice_b(audio: np.ndarray) -> np.ndarray:
+    """A second voice from the synthesis: played 1.25 x faster, so pitch
+    and formants sit a major third higher."""
+    return np.interp(np.arange(0, len(audio), 1.25), np.arange(len(audio)),
+                     audio).astype(np.float32)
+
+
+def conversation(seconds: float, seed: int) -> np.ndarray:
+    """Two voices taking turns, each turn starting before the last ends
+    (overlapped speech), with pauses now and then."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(int(seconds * SR), np.float32)
+    pos, voice = int(0.3 * SR), 0
+    while pos < len(out) - SR // 2:
+        text = "".join(BOOT_CHARS[int(rng.integers(len(BOOT_CHARS)))]
+                       for _ in range(int(rng.integers(4, 12))))
+        utt = synth_utterance(text, rng)[0]
+        utt = voice_b(utt) if voice else utt
+        n = min(len(utt), len(out) - pos)
+        out[pos: pos + n] += utt[:n]
+        pause = rng.uniform(0.4, 1.2) if rng.random() < 0.3 else -0.25
+        pos += max(n + int(pause * SR), SR // 4)
+        voice ^= 1
+    return out
+
+
+def enrollment(seconds: float, seed: int) -> np.ndarray:
+    """Utterances of the second voice alone, with short pauses."""
+    rng = np.random.default_rng(seed)
+    pieces, total = [], 0
+    while total < seconds * SR:
+        text = "".join(BOOT_CHARS[int(rng.integers(len(BOOT_CHARS)))] for _ in range(8))
+        pieces += [voice_b(synth_utterance(text, rng)[0]),
+                   np.zeros(int(rng.uniform(0.2, 0.5) * SR), np.float32)]
+        total += len(pieces[-2]) + len(pieces[-1])
+    return np.concatenate(pieces)[: int(seconds * SR)]
+
+
+def load_frontend(compute_dtype: str | None = None):
+    """The front end as a user builds it: the denoiser through
+    `AudioProcessor(denoise_model=...)`, the other engines from their
+    checkpoints, all in the card's default types unless `compute_dtype`."""
+    from targetdiarization_tpu_torch.models.diarization import SegmentationEngine
+    from targetdiarization_tpu_torch.models.speaker import SpeakerEngine
+    from targetdiarization_tpu_torch.models.vad import VADEngine
+    from targetdiarization_tpu_torch.pipeline.fused import FusedFrontend
+    from targetdiarization_tpu_torch.processors.audio import AudioProcessor
+
+    kw = {"device": "cuda", "compute_dtype": compute_dtype}
+    ap = AudioProcessor(denoise_model=FRONTEND_CHECKPOINTS["den"], **kw)
+    fe = FusedFrontend(ap.denoiser,
+                       VADEngine.from_pretrained(FRONTEND_CHECKPOINTS["vad"], **kw),
+                       SegmentationEngine.from_pretrained(FRONTEND_CHECKPOINTS["seg"], **kw),
+                       SpeakerEngine.from_pretrained(FRONTEND_CHECKPOINTS["spk"], **kw))
+    return ap, fe
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a, b = np.atleast_2d(a).astype(np.float64), np.atleast_2d(b).astype(np.float64)
+    return (a * b).sum(-1) / np.maximum(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1),
+                                        1e-30)
+
+
+def front_end_agreement(got: dict, want: dict, got_emb: np.ndarray, want_emb: np.ndarray) -> dict:
+    from targetdiarization_tpu_torch.models.vad import VADConfig, segment_probs
+
+    seg_got = segment_probs(got["vad_probs"], VADConfig())
+    seg_want = segment_probs(want["vad_probs"], VADConfig())
+    return {"track_identical": bool(np.array_equal(got["audio"], want["audio"])),
+            "track_si_sdr_db": si_sdr(got["audio"], want["audio"]),
+            "vad_probs_max_abs": float(np.abs(got["vad_probs"] - want["vad_probs"]).max()),
+            "seg_act_max_abs": float(np.abs(got["seg_act"] - want["seg_act"]).max()),
+            "win_embs_min_cos": float(cosines(got["win_embs"], want["win_embs"]).min()),
+            "enroll_emb_cos": float(cosines(got_emb, want_emb)[0]),
+            "win_times_equal": got["win_times"] == want["win_times"],
+            "vad_segments": [len(seg_got), len(seg_want)],
+            "vad_segments_within_20ms": len(seg_got) == len(seg_want) and all(
+                abs(a - b) <= 0.02 for x, y in zip(seg_got, seg_want) for a, b in zip(x, y))}
+
+
+def check_frontend() -> dict:
+    import torch
+
+    from targetdiarization_tpu_torch.models.speaker import BatchNorm
+
+    conv, clip = conversation(46.0, seed=8), enrollment(8.0, seed=9)
+    t = time.time()
+    ap, fe = load_frontend()
+    seg_net, spk_net = fe.seg.model, fe.spk.model
+    norms = {id(p) for m in spk_net.modules() if isinstance(m, BatchNorm) for p in m.parameters()}
+    types = {"denoiser": sorted({str(p.dtype) for p in ap.denoiser.model.parameters()}),
+             "vad": sorted({str(p.dtype) for p in fe.vad.model.parameters()}),
+             "seg_convs": sorted({str(p.dtype) for m in (seg_net.conv1, seg_net.conv2)
+                                  for p in m.parameters()}),
+             "seg_rest": sorted({str(p.dtype) for m in (seg_net.layers, seg_net.head)
+                                 for p in m.parameters()}),
+             "spk_batchnorms": sorted({str(p.dtype) for p in spk_net.parameters()
+                                       if id(p) in norms}),
+             "spk_rest": sorted({str(p.dtype) for p in spk_net.parameters()
+                                 if id(p) not in norms})}
+    emit("frontend_load", checkpoints={k: os.path.relpath(v, ROOT)
+                                       for k, v in FRONTEND_CHECKPOINTS.items()},
+         load_s=time.time() - t, hop=ap.denoiser.hop, conversation_s=len(conv) / SR,
+         enrollment_s=len(clip) / SR, **types)
+    bf, f32 = ["torch.bfloat16"], ["torch.float32"]
+    if types != {"denoiser": bf, "vad": bf, "seg_convs": bf, "seg_rest": f32,
+                 "spk_batchnorms": bf, "spk_rest": f32}:
+        raise AssertionError(f"the front end does not compute in the JAX package's types: {types}")
+    fe.analyze(conv)  # warm-up: cuDNN, cuFFT and cuBLAS set-up at these shapes
+    fe.enroll(clip)
+
+    # the main path, counted: analyze of the 46 s conversation (a 30 s and a
+    # 16 s part) and enroll of the 8 s clip, with the VAD's forwards by hook
+    vad_forwards = [0]
+    hook = fe.vad.model.register_forward_hook(
+        lambda *_: vad_forwards.__setitem__(0, vad_forwards[0] + 1))
+    reset_launches()
+    main, analyze_s = timed(lambda: fe.analyze(conv))
+    after_analyze = read_launches()
+    main_enroll, enroll_s = timed(lambda: fe.enroll(clip))
+    launches = read_launches()
+    hook.remove()
+    emit("launches", path="FusedFrontend", vad_forwards=vad_forwards[0],
+         analyze=after_analyze, enroll={k: launches[k] - after_analyze[k] for k in launches},
+         **launches)
+    want = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0, "dwconv": 4 * vad_forwards[0]}
+    if launches != want or vad_forwards[0] != 3 or after_analyze["dwconv"] != 8:
+        raise AssertionError(f"kernel launches {launches} on the front end with "
+                             f"{vad_forwards[0]} VAD forwards, want {want} from 3")
+    n, top = len(conv), 30 * SR  # frames counted in each 30 s part
+    frames = sum((min(top, n - i) - 400) // 160 + 1 for i in range(0, n, top))
+    if (main["audio"].shape != (n,) or len(main["vad_probs"]) != frames
+            or main["seg_act"].shape[1] != 3 or main["win_embs"].shape[1] != 192
+            or len(main["win_times"]) != len(main["win_embs"])
+            or not all(np.isfinite(main[k]).all() for k in ("audio", "vad_probs", "seg_act",
+                                                             "win_embs"))
+            or main_enroll["emb"].shape != (192,) or not np.isfinite(main_enroll["emb"]).all()):
+        raise AssertionError("the front end's outputs have the wrong shapes or are not finite")
+    denoised, denoise_s = timed(lambda: ap.denoise_vocal(conv, SR))
+    for name, audio_s, wall in (("analyze", n / SR, analyze_s), ("enroll", len(clip) / SR,
+                                                                 enroll_s),
+                                ("denoise_vocal", n / SR, denoise_s)):
+        emit("frontend_call", path="bf16 kernels", call=name, audio_s=audio_s, wall_s=wall,
+             rtfx=audio_s / wall)
+    emit("frontend_outputs", vad_frames=len(main["vad_probs"]),
+         speech_share=float((main["vad_probs"] > 0.5).mean()),
+         seg_frames=main["seg_act"].shape[0], windows=len(main["win_embs"]),
+         enroll_vs_windows_cos_max_median=[
+             float(f(cosines(main["win_embs"], main_enroll["emb"]))) for f in (np.max, np.median)],
+         denoise_vocal_finite=bool(np.isfinite(denoised).all()))
+    profile_call(lambda: fe.analyze(conv), "FusedFrontend.analyze, 46 s", top=12)
+
+    # float32: the kernel path against the plain path (only the VAD holds a
+    # kernel, so the track, the activations and the embeddings are the same)
+    _, fe32 = load_frontend("float32")
+    kern32 = fe32.analyze(conv), fe32.enroll(clip)["emb"]
+    with plain_kernels():
+        plain32 = fe32.analyze(conv), fe32.enroll(clip)["emb"]
+    f32 = front_end_agreement(kern32[0], plain32[0], kern32[1], plain32[1])
+    bf16 = front_end_agreement(main, plain32[0], main_enroll["emb"], plain32[1])
+    emit("frontend_agreement", f32_kernels_vs_f32_plain=f32, bf16_kernels_vs_f32_plain=bf16)
+    if not (f32["track_identical"] and f32["vad_probs_max_abs"] <= 1e-4
+            and f32["seg_act_max_abs"] <= 1e-4 and f32["win_embs_min_cos"] >= 0.9999
+            and f32["enroll_emb_cos"] >= 0.9999 and f32["win_times_equal"]):
+        raise AssertionError(f"float32 kernel path vs float32 plain path: {f32}")
+    if bf16["track_si_sdr_db"] < 10.0 or min(bf16["win_embs_min_cos"],
+                                             bf16["enroll_emb_cos"]) < 0.95:
+        raise AssertionError(f"bf16 front end vs float32 plain path: {bf16}")
+    return launches
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -947,7 +1137,7 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
     the larger of their tensor-core passes, ffconvm's taps on the float32
     units and their bytes; `fma_bound_ms` is the same work on the float32
     units alone; dwconv's float32 FMA work or its bytes);
-    `launches` sums the main-path runs of both slices, `launches_by_path`
+    `launches` sums the main-path runs of every slice, `launches_by_path`
     splits them."""
     per_layer = {"to_hidden": 1, "to_qk": 1, "to_out": 1, "to_u": 2,  # to_v = to_u's shape
                  "separator conv0": 1, "separator conv1": 1}
@@ -1005,7 +1195,8 @@ def main() -> None:
     build_report()
     rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
             "dwconv": check_dwconv(), "flash_group": check_flash_group()}
-    path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr()}
+    path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr(),
+                     "FusedFrontend": check_frontend()}
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

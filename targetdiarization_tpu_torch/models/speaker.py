@@ -1,0 +1,254 @@
+"""ERes2NetV2 speaker embeddings (192-d) and the speaker engine.
+
+Counterpart of targetdiarization_tpu/models/speaker.py (ERes2NetV2,
+`SpeakerEngine.embed_batch`, `get_speaker_embedding`, `is_same_person`,
+`cosine_similarity`). The network is NCHW over (B, C, T, F): the JAX
+model's NHWC image (B, T, F, C) with the channels moved, so (T, F) stay
+(H, W); before pooling the maps go back to (B, T', F', C) and flatten to
+(B, T', F'·C) as in the JAX model. BatchNorm runs on the checkpoint's
+running statistics (flax's epsilon 1e-5), the AFF gate's GroupNorm per
+channel (epsilon 1e-6).
+
+In the JAX package's bf16 mode the float32 time mask multiplies the bf16
+input at once, so the network computes in float32 from bf16-rounded
+weights and a bf16-rounded input, except that each BatchNorm's
+rsqrt(var + eps) is rounded to the bf16 type of its running statistics;
+the engine does the same (its BatchNorms keep the compute type).
+
+`get_target_embedding` (HDBSCAN over per-segment embeddings, from
+sklearn) and CAMPlusPlus are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.conv import Conv2dSame
+from ..ops.kernels import prepare_kernels
+from ..runtime.buckets import BucketLadder, pad_to
+from ..runtime.precision import (dequantize_audio, exact_float32, promote_after, quantize_i16,
+                                 resolve_compute_dtype)
+from . import features
+
+EMBED_DIM = 192
+MAX_EMBED_SECONDS = 30.0  # the reference truncates the SV input at 30 s
+BN_EPS = 1e-5  # flax nn.BatchNorm
+GN_EPS = 1e-6  # flax nn.GroupNorm
+
+_SAMPLE_LADDER = BucketLadder(tuple(int(s * 16000) for s in (1, 2, 4, 8, 16, 30)))
+
+
+def time_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
+    """(B,) lengths -> (B, t) float32 prefix mask."""
+    return (torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]).float()
+
+
+class BatchNorm(nn.Module):
+    """flax BatchNorm with running averages over the channel axis of NCHW
+    maps: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+
+    def __init__(self, channels: int, eps: float = BN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        def channels(v):
+            return v[:, None, None]
+
+        # rsqrt(var + eps) is rounded to the statistics' type and the rest
+        # computes in float32: what XLA's fusion of the JAX model's bf16
+        # mode does (tests/test_torch_speaker.py holds it)
+        inv = torch.rsqrt(self.running_var.float() + self.eps).to(self.running_var.dtype)
+        mul = inv.float() * self.weight.float()
+        return (x - channels(self.running_mean)) * channels(mul) + channels(self.bias)
+
+
+class AttentiveStatsPool(nn.Module):
+    """Masked attentive statistics pooling: (B, T, D) -> (B, 2D)."""
+
+    def __init__(self, dim: int, hidden: int = 128):
+        super().__init__()
+        self.att_w = nn.Linear(dim, hidden)
+        self.att_v = nn.Linear(hidden, 1)
+
+    def forward(self, x, mask):
+        a = self.att_v(torch.tanh(self.att_w(x)))[..., 0]  # (B, T)
+        a = torch.softmax(torch.where(mask > 0, a, torch.full_like(a, -1e9)), dim=-1)[..., None]
+        mean = (a * x).sum(dim=1)
+        var = (a * x.square()).sum(dim=1) - mean.square()
+        return torch.cat([mean, torch.sqrt(torch.clamp_min(var, 1e-7))], dim=-1)
+
+
+class AFF(nn.Module):
+    """Attentional feature fusion: a channel gate between two branches."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.gate_down = nn.Conv2d(channels, channels // 2, 1)
+        self.gate_norm = nn.GroupNorm(channels // 2, channels // 2, eps=GN_EPS)
+        self.gate_up = nn.Conv2d(channels // 2, channels, 1)
+
+    def forward(self, a, b):
+        g = self.gate_up(torch.relu(self.gate_norm(self.gate_down(a + b))))
+        w = torch.sigmoid(g)
+        return a * w + b * (1.0 - w)
+
+
+class Res2Block(nn.Module):
+    """Res2Net block: a strided 1x1 reduce, `scale` hierarchical 3x3
+    branches, a 1x1 expand, and an AFF with the (projected) input."""
+
+    def __init__(self, in_channels: int, channels: int, scale: int = 4, stride: int = 1):
+        super().__init__()
+        self.scale = scale
+        width = channels // scale
+        self.reduce = nn.Conv2d(in_channels, channels, 1, stride=stride, bias=False)
+        self.bn1 = BatchNorm(channels)
+        self.conv = nn.ModuleDict({str(i): Conv2dSame(width, width, 3, bias=False)
+                                   for i in range(1, scale)})
+        self.bn = nn.ModuleDict({str(i): BatchNorm(width) for i in range(1, scale)})
+        self.expand = nn.Conv2d(channels, channels, 1, bias=False)
+        self.bn2 = BatchNorm(channels)
+        self.shortcut = self.bn_sc = None
+        if in_channels != channels or stride != 1:
+            self.shortcut = nn.Conv2d(in_channels, channels, 1, stride=stride, bias=False)
+            self.bn_sc = BatchNorm(channels)
+        self.aff = AFF(channels)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.reduce(x)))
+        splits = torch.chunk(y, self.scale, dim=1)
+        outs, prev = [splits[0]], None
+        for i in range(1, self.scale):
+            inp = splits[i] if prev is None else splits[i] + prev
+            prev = torch.relu(self.bn[str(i)](self.conv[str(i)](inp)))
+            outs.append(prev)
+        y = self.bn2(self.expand(torch.cat(outs, dim=1)))
+        sc = x if self.shortcut is None else self.bn_sc(self.shortcut(x))
+        return torch.relu(self.aff(y, sc))
+
+
+class ERes2NetV2(nn.Module):
+    """Res2Net speaker embedder over 80-d fbank (w24s4 by default)."""
+
+    def __init__(self, feat_dim: int = 80, channels: int = 24, scale: int = 4,
+                 blocks=(1, 1, 1, 1), embed_dim: int = EMBED_DIM):
+        super().__init__()
+        self.feat_dim = feat_dim
+        self.stem = Conv2dSame(1, channels, 3, bias=False)
+        self.stem_bn = BatchNorm(channels)
+        self.blocks = nn.ModuleDict()
+        c_in, f = channels, feat_dim
+        for si, n_blocks in enumerate(blocks):
+            c_out = channels * 2 ** si
+            for bi in range(n_blocks):
+                stride = 2 if si > 0 and bi == 0 else 1
+                self.blocks[f"stage{si}_block{bi}"] = Res2Block(c_in, c_out, scale, stride)
+                f = -(-f // stride)
+                c_in = c_out
+        self.asp = AttentiveStatsPool(f * c_in)
+        self.embedding = nn.Linear(2 * f * c_in, embed_dim)
+
+    def forward(self, feats, lengths):
+        """feats (B, T, F), lengths (B,) frames -> (B, embed_dim)."""
+        t = feats.shape[1]
+        # the float32 mask promotes the stream to float32, as in the JAX model
+        x = (feats * time_mask(lengths, t)[..., None])[:, None]  # (B, 1, T, F)
+        x = torch.relu(self.stem_bn(self.stem(x)))
+        for block in self.blocks.values():
+            x = block(x)
+        b, c, tt, ff = x.shape
+        h = x.permute(0, 2, 3, 1).reshape(b, tt, ff * c)
+        ds = t // tt if tt else 1
+        m2 = time_mask(torch.clamp_min(lengths // ds, 1), tt)
+        return self.embedding(self.asp(h, m2))
+
+
+def cosine_similarity(e1, e2) -> float:
+    """Plain cosine in [-1, 1]; 0 for a zero vector."""
+    e1 = np.asarray(e1, np.float64).ravel()
+    e2 = np.asarray(e2, np.float64).ravel()
+    n1, n2 = np.linalg.norm(e1), np.linalg.norm(e2)
+    if n1 == 0 or n2 == 0:
+        return 0.0
+    return float(np.dot(e1, e2) / (n1 * n2))
+
+
+class SpeakerEngine:
+    """Speaker embeddings and verification. Audio goes up as int16, one
+    padded batch per sample rung (1 .. 30 s); fbank, the CMN over each
+    clip's valid frames and the forward run on the device in one pass."""
+
+    def __init__(self, model: ERes2NetV2, device: str | torch.device = "cuda",
+                 compute_dtype: str | None = None):
+        self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
+        norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+        self.model = promote_after(model.to(self.device), norms, self.compute_dtype).eval()
+        prepare_kernels(self.model)
+
+    @classmethod
+    def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
+                        compute_dtype: str | None = None) -> "SpeakerEngine":
+        from ..runtime.registry import from_pretrained
+
+        return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype)
+
+    def embed_feats(self, feats: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """Device features (B, T, 80) float32 -> (B, 192) float32, the input
+        rounded to the compute type first."""
+        with torch.inference_mode(), exact_float32():
+            return self.model(feats.to(self.compute_dtype), lengths).float()
+
+    def _embed(self, batch: np.ndarray, n_frames: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            audio = torch.from_numpy(quantize_i16(batch)).to(self.device)
+            feats = features.fbank(dequantize_audio(audio))  # (B, T, 80)
+            nf = torch.from_numpy(n_frames).to(self.device)
+            fmask = time_mask(nf, feats.shape[1])[..., None]
+            mean = (feats * fmask).sum(dim=1, keepdim=True) / torch.clamp_min(
+                fmask.sum(dim=1, keepdim=True), 1.0)
+            return self.embed_feats((feats - mean) * fmask, nf).cpu().numpy()
+
+    def embed_batch(self, audios: list, sr: int = 16000,
+                    single_dispatch: bool = False) -> np.ndarray:
+        """(N, 192) embeddings, one forward per sample rung (all clips in the
+        rung of the longest with `single_dispatch`); a clip shorter than one
+        fbank frame gets a zero vector. Clips are cut at 30 s."""
+        max_n = int(MAX_EMBED_SECONDS * sr)
+        clips = []
+        for a in audios:
+            a = np.asarray(a, np.float32).ravel()[:max_n]
+            if sr != 16000 and a.size:
+                from ..ops.resample import resample_poly_np
+
+                a = resample_poly_np(a, 16000, sr)
+            clips.append(a)
+        out = np.zeros((len(clips), EMBED_DIM), np.float32)
+        valid = [i for i, a in enumerate(clips) if features.num_frames(len(a)) > 0]
+        by_bucket: dict = {}
+        if single_dispatch and valid:
+            by_bucket[_SAMPLE_LADDER.bucket(max(len(clips[i]) for i in valid))] = valid
+        else:
+            for i in valid:
+                by_bucket.setdefault(_SAMPLE_LADDER.bucket(len(clips[i])), []).append(i)
+        for bucket, idxs in by_bucket.items():
+            batch = np.stack([pad_to(clips[i], bucket) for i in idxs])
+            n_frames = np.array([features.num_frames(len(clips[i])) for i in idxs])
+            out[idxs] = self._embed(batch, n_frames)
+        return out
+
+    def get_speaker_embedding(self, audio, sr: int = 16000) -> np.ndarray:
+        """One clip's 192-d embedding (zeros for a too-short clip)."""
+        return self.embed_batch([audio], sr=sr)[0]
+
+    def is_same_person(self, emb_a, emb_b, threshold: float = 0.4):
+        """(same, cosine score)."""
+        score = cosine_similarity(emb_a, emb_b)
+        return bool(score >= threshold), score

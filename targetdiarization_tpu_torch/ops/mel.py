@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .stft import frame_signal
+from .tables import device_table
 
 LOG_FLOOR = 1.1920928955078125e-07
 
@@ -48,7 +49,7 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 
 
 def _povey_window(n: int) -> np.ndarray:
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))) ** 0.85
+    return ((0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))) ** 0.85).astype(np.float32)
 
 
 def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000, n_mels: int = 80,
@@ -60,9 +61,9 @@ def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000, n_mels: int = 80,
     frames = frame_signal(audio, frame_length, hop)
     frames = frames - frames.mean(dim=-1, keepdim=True)
     pre = frames - preemph * torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
-    win = torch.from_numpy(_povey_window(frame_length).astype(np.float32)).to(audio.device)
+    win = device_table(_povey_window, (frame_length,), audio.device)
     spec = torch.fft.rfft(pre * win, n=n_fft, dim=-1)
     power = spec.real.square() + spec.imag.square()
-    fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin=20.0)).to(audio.device)
+    fb = device_table(mel_filterbank, (sr, n_fft, n_mels, 20.0), audio.device)
     mel = torch.matmul(power, fb.T)
     return torch.log(torch.clamp_min(mel, LOG_FLOOR))

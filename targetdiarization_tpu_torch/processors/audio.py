@@ -1,10 +1,15 @@
-"""AudioProcessor, separation part.
+"""AudioProcessor: preprocessing (denoise, loudness, gain, peak
+normalization, module chains) and separation.
 
-Counterpart of the separation stage of
-targetdiarization_tpu/processors/audio.py::AudioProcessor. A separator
+Counterpart of the preprocessing and separation stages of
+targetdiarization_tpu/processors/audio.py::AudioProcessor. A model
 configured by path is loaded from that checkpoint or the constructor
 raises; there is no random-weight stand-in. With no separator configured,
-`separate_speaker` returns the input twice, as the reference does.
+`separate_speaker` returns the input twice; with no denoiser,
+`denoise_vocal` runs the spectral gate, as the reference does.
+Loudness is metered on the host; gain and peak normalization are
+elementwise on the host. Restoration and enhancement are not ported:
+`run_modules` raises for them.
 """
 
 from __future__ import annotations
@@ -14,27 +19,90 @@ import os
 import numpy as np
 import torch
 
+from ..models.denoise import QUALITY_HOP, DenoiseEngine, spectral_gate
 from ..models.separation import SeparationEngine
+from ..ops import audio as A
+from ..ops.loudness import integrated_loudness
+
+_UNPORTED = {"restore_audio", "enhance_audio"}
+
+
+def _checkpoint(path: str, what: str) -> str:
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"{what} checkpoint {path!r} not found")
+    return path
 
 
 class AudioProcessor:
-    def __init__(self, separation_model: str = "", device: str | torch.device = "cuda",
-                 compute_dtype: str | None = None, verbose_log: bool = False):
+    def __init__(self, separation_model: str = "", denoise_model: str = "", quality: int = 2,
+                 device: str | torch.device = "cuda", compute_dtype: str | None = None,
+                 verbose_log: bool = False):
         self.verbose_log = verbose_log
-        self.separator = None
+        self.quality = quality
+        self.device = torch.device(device)
+        self.separator = self.denoiser = None
         if separation_model:
-            if not os.path.isdir(separation_model):
-                raise FileNotFoundError(f"separation checkpoint {separation_model!r} not found")
             self.separator = SeparationEngine.from_pretrained(
-                separation_model, device=device, compute_dtype=compute_dtype)
+                _checkpoint(separation_model, "separation"), device=device,
+                compute_dtype=compute_dtype)
+        if denoise_model:
+            self.denoiser = DenoiseEngine.from_pretrained(
+                _checkpoint(denoise_model, "denoise"), hop=QUALITY_HOP.get(quality, 1024),
+                device=device, compute_dtype=compute_dtype)
 
     def _log(self, msg: str):
         if self.verbose_log:
             print(msg)
 
+    # ---------------- level ----------------
+
+    def meter_loudness(self, audio_data: np.ndarray, sampling_rate: int) -> float:
+        """Integrated loudness (BS.1770, LUFS); -inf below one 400 ms block."""
+        a = np.asarray(audio_data, np.float32)
+        if a.size < int(0.4 * sampling_rate):
+            return float("-inf")
+        return integrated_loudness(a, sampling_rate)
+
+    def audio_loudness_control(self, audio_data: np.ndarray, sampling_rate: int,
+                               target_loudness: float = -23.0) -> np.ndarray:
+        """Gain to `target_loudness` LUFS; unchanged below one block or in
+        silence."""
+        a = np.asarray(audio_data, np.float32)
+        if a.size < int(0.4 * sampling_rate):
+            return a
+        measured = integrated_loudness(a, sampling_rate)
+        if not np.isfinite(measured):
+            return a
+        return a * np.float32(10.0 ** ((target_loudness - measured) / 20.0))
+
+    def audio_gain(self, audio_data: np.ndarray, gain_db: float) -> np.ndarray:
+        return A.apply_gain_db(torch.from_numpy(np.asarray(audio_data, np.float32)),
+                               gain_db).numpy()
+
+    def audio_normalize(self, audio_data: np.ndarray, peak_db: float = -1.0) -> np.ndarray:
+        return A.peak_normalize(torch.from_numpy(np.asarray(audio_data, np.float32)),
+                                peak_db).numpy()
+
+    # ---------------- neural stages ----------------
+
+    @property
+    def is_denoise_vocal(self) -> bool:
+        return self.denoiser is not None
+
     @property
     def is_separate_speaker(self) -> bool:
         return self.separator is not None
+
+    def denoise_vocal(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                      fast_mode: bool = False) -> np.ndarray:
+        """Vocals by the MDX denoiser; the spectral gate with `fast_mode` or
+        without a denoiser."""
+        self._log("Running module: denoise_vocal")
+        if self.denoiser is None or fast_mode:
+            with torch.inference_mode():
+                x = torch.from_numpy(np.asarray(audio_data, np.float32)).to(self.device)
+                return spectral_gate(x).cpu().numpy()
+        return self.denoiser.denoise_vocal(audio_data, sr=sampling_rate)
 
     def separate_speaker(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> list:
         """[spk1, spk2] loudest first; with no separator, the input twice."""
@@ -44,3 +112,34 @@ class AudioProcessor:
             return [a, a.copy()]
         out = self.separator.separate(audio_data, sr=sampling_rate)
         return [out[0], out[1]]
+
+    def run_modules(self, audio_data: np.ndarray, sampling_rate: int,
+                    modules: list) -> np.ndarray:
+        """A chain of stages, in order: dict entries {method_name: kwargs}
+        called as method(audio, **kwargs), or the short names "denoise",
+        "separate", "loudness" and "normalize" (the rate passed where the
+        stage takes one). A separating stage passes its louder stream on;
+        an unknown name is skipped; restoration and enhancement raise."""
+        aliases = {"denoise": "denoise_vocal", "separate": "separate_speaker",
+                   "restore": "restore_audio", "enhance": "enhance_audio",
+                   "loudness": "audio_loudness_control", "normalize": "audio_normalize"}
+        out = np.asarray(audio_data, np.float32)
+        for mod in modules:
+            calls = (mod.items() if isinstance(mod, dict)
+                     else [(aliases.get(mod, mod), None)])
+            for name, params in calls:
+                if name in _UNPORTED:
+                    raise NotImplementedError(f"{name} is not ported")
+                method = getattr(self, name, None)
+                if method is None:
+                    self._log(f"Method {name} not exists.")
+                    continue
+                if isinstance(mod, dict):
+                    out = method(out, **dict(params or {}))
+                elif mod == "normalize":
+                    out = method(out)
+                else:
+                    out = method(out, sampling_rate)
+                if name == "separate_speaker":
+                    out = out[0]
+        return out

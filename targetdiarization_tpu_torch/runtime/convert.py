@@ -21,8 +21,16 @@ Layout rules:
 - MultiHeadDotProductAttention query/key/value kernels (dim, h, hd) ->
   Linear weight (h*hd, dim), biases (h, hd) -> (h*hd,); out kernel
   (h, hd, dim) -> (dim, h*hd);
-- Embed embedding -> weight; LayerNorm scale -> weight;
-- depthwise kernels keep the JAX layout (K, m, C).
+- Embed embedding -> weight; LayerNorm and GroupNorm scale -> weight;
+- depthwise kernels keep the JAX layout (K, m, C);
+- 2-D Conv kernel (kh, kw, in, out) -> conv2d weight (out, in, kh, kw),
+  1-D Conv kernel (k, in, out) -> conv1d weight (out, in, k);
+- ConvTranspose kernel (kh, kw, in, out) (flax's default
+  `transpose_kernel=False`: the kernel is correlated with the
+  stride-dilated input) -> flipped in both spatial axes, then
+  conv_transpose2d's (in, out, kh, kw);
+- BatchNorm: `params` scale/bias -> weight/bias, `batch_stats` mean/var
+  -> running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -138,20 +146,27 @@ def paraformer_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+def _attention_rules(flat: dict, prefix: str) -> dict:
+    """MultiHeadDotProductAttention kernels under `prefix` as Linear
+    layers: query/key/value (dim, h, hd) -> (h*hd, dim), biases (h, hd)
+    -> (h*hd,), out (h, hd, dim) -> (dim, h*hd)."""
+    out = {}
+    for key in [k for k in flat if re.match(prefix, k)]:
+        v = np.asarray(flat.pop(key), np.float32)
+        if key.endswith("/out/kernel"):
+            v = v.reshape(-1, v.shape[-1]).T
+        elif key.endswith("/kernel"):
+            v = v.reshape(v.shape[0], -1).T
+        elif not key.endswith("/out/bias"):
+            v = v.reshape(-1)
+        out[key.replace("/kernel", "/weight")] = v
+    flat.update(out)
+    return flat
+
+
 def cttransformer_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     """State dict of `models.punctuation.CTTransformerPunc`."""
-    flat = flatten(tree.get("params", tree))
-    mha = {}
-    for key in [k for k in flat if re.match(r"^attn_\d+/", k)]:
-        v = np.asarray(flat.pop(key), np.float32)
-        if key.endswith("/out/kernel"):      # (h, hd, dim) -> (dim, h*hd)
-            v = v.reshape(-1, v.shape[-1]).T
-        elif key.endswith("/kernel"):        # (dim, h, hd) -> (h*hd, dim)
-            v = v.reshape(v.shape[0], -1).T
-        elif not key.endswith("/out/bias"):  # (h, hd) -> (h*hd,)
-            v = v.reshape(-1)
-        mha[key.replace("/kernel", "/weight")] = v
-    flat.update(mha)
+    flat = _attention_rules(flatten(tree.get("params", tree)), r"^attn_\d+/")
     sd = _dense_rules(flat, ((re.compile(r"^(ln1|attn|ln2|ff1|ff2)_(\d+)/"),
                               r"layers/\2/\1/"),))
     return _to_tensors(sd)
@@ -165,5 +180,70 @@ def fsmn_vad_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+def _conv_rules(flat: dict, renames, transposed=()) -> dict:
+    """`_dense_rules` for models with convolutions: Conv kernels to torch's
+    layout (keys matching a pattern of `transposed` as ConvTranspose),
+    then the dense rules."""
+    convs, rest = {}, {}
+    for key, v in flat.items():
+        v = np.asarray(v, np.float32)
+        if key.endswith("/kernel") and v.ndim == 4:
+            if any(p.search(key) for p in transposed):
+                v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                v = v.transpose(3, 2, 0, 1)
+        elif key.endswith("/kernel") and v.ndim == 3:
+            v = v.transpose(2, 1, 0)
+        else:
+            rest[key] = v
+            continue
+        convs[key[: -len("kernel")] + "weight"] = v
+    sd = _dense_rules(rest, renames)
+    for key, v in convs.items():
+        name = key
+        for pat, rep in renames:
+            name = pat.sub(rep, name)
+        sd[name.replace("/", ".")] = np.ascontiguousarray(v)
+    return sd
+
+
+def tdfunet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.denoise.TDFUNet`."""
+    sd = _conv_rules(flatten(tree.get("params", tree)),
+                     ((re.compile(r"^(enc|down|up|dec)_(\d+)/"), r"\1/\2/"),),
+                     transposed=(re.compile(r"^up_\d+/"),))
+    return _to_tensors(sd)
+
+
+def segmentation_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.diarization.SegmentationNet`."""
+    flat = _attention_rules(flatten(tree.get("params", tree)), r"^layer_\d+/attn/")
+    sd = _conv_rules(flat, (
+        (re.compile(r"^layer_(\d+)/"), r"layers/\1/"),
+        (re.compile(r"/LayerNorm_0/"), r"/ln1/"), (re.compile(r"/LayerNorm_1/"), r"/ln2/"),
+        (re.compile(r"/Dense_0/"), r"/ff1/"), (re.compile(r"/Dense_1/"), r"/ff2/"),
+    ))
+    return _to_tensors(sd)
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def eres2netv2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.speaker.ERes2NetV2`, from a tree with both
+    `params` and `batch_stats` (the BatchNorm running statistics)."""
+    flat = flatten(tree["params"])
+    for key, v in flatten(tree["batch_stats"]).items():
+        head, leaf = key.rsplit("/", 1)
+        flat[f"{head}/{_BN_STATS[leaf]}"] = v
+    sd = _conv_rules(flat, (
+        (re.compile(r"^(stage\d+_block\d+)/"), r"blocks/\1/"),
+        (re.compile(r"/(conv|bn)_(\d+)/"), r"/\1/\2/"),
+    ))
+    return _to_tensors(sd)
+
+
 CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_state_dict,
-              "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict}
+              "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict,
+              "TDFUNet": tdfunet_state_dict, "SegmentationNet": segmentation_state_dict,
+              "ERes2NetV2": eres2netv2_state_dict}

@@ -10,6 +10,7 @@ changes the samples, so parity depends on it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Sequence
 
@@ -46,6 +47,19 @@ def promote_after(model: nn.Module, first: nn.Module | Sequence[nn.Module],
         for m in ([first] if isinstance(first, nn.Module) else first):
             m.to(dtype)
     return model
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Float32 products and convolutions in float32, not TF32, inside the
+    block (the JAX package's float32 and `Precision.HIGHEST`); the
+    process's settings come back after it."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
 def quantize_i16(x) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 The machine with the card has PyTorch and no jax or flax, so the port and
 chip_smoke.py must import and run with jax, flax and the JAX package
-unimportable: the separator and the ASR stage on the shipped checkpoints.
+unimportable: the separator, the ASR stage and the fused front end on the
+shipped checkpoints.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -41,6 +42,20 @@ _BLOCKED_RUN = textwrap.dedent("""
     mix = (0.3 * np.sin(2 * np.pi * 150 * t) + 0.1 * np.sin(2 * np.pi * 410 * t)).astype(np.float32)
     out = ap.separate_speaker(mix)
     assert len(out) == 2 and all(o.shape == mix.shape and np.isfinite(o).all() for o in out)
+    from targetdiarization_tpu_torch.models.denoise import DenoiseEngine
+    from targetdiarization_tpu_torch.models.diarization import SegmentationEngine
+    from targetdiarization_tpu_torch.models.speaker import SpeakerEngine
+    from targetdiarization_tpu_torch.models.vad import VADEngine
+    from targetdiarization_tpu_torch.pipeline.fused import FusedFrontend
+    fe = FusedFrontend(*(cls.from_pretrained(f"checkpoints/{name}-bootstrap", device="cpu")
+                         for cls, name in ((DenoiseEngine, "den"), (VADEngine, "vad"),
+                                           (SegmentationEngine, "seg"), (SpeakerEngine, "spk"))))
+    res = fe.analyze(mix)
+    assert res["audio"].shape == mix.shape and np.isfinite(res["audio"]).all()
+    assert res["vad_probs"].shape == (98,) and res["seg_act"].shape == (24, 3)
+    assert res["win_embs"] is None  # 98 frames: no whole 150-frame window
+    emb = fe.enroll(mix)["emb"]
+    assert emb.shape == (192,) and np.isfinite(emb).all()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"))
     assert not leaked, leaked
