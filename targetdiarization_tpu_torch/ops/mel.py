@@ -49,7 +49,11 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 
 
 def _povey_window(n: int) -> np.ndarray:
-    return ((0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))) ** 0.85).astype(np.float32)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))) ** 0.85
+
+
+def _povey_window_f32(n: int) -> np.ndarray:
+    return _povey_window(n).astype(np.float32)
 
 
 def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000, n_mels: int = 80,
@@ -61,7 +65,7 @@ def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000, n_mels: int = 80,
     frames = frame_signal(audio, frame_length, hop)
     frames = frames - frames.mean(dim=-1, keepdim=True)
     pre = frames - preemph * torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
-    win = device_table(_povey_window, (frame_length,), audio.device)
+    win = device_table(_povey_window_f32, (frame_length,), audio.device)
     spec = torch.fft.rfft(pre * win, n=n_fft, dim=-1)
     power = spec.real.square() + spec.imag.square()
     fb = device_table(mel_filterbank, (sr, n_fft, n_mels, 20.0), audio.device)
