@@ -11,8 +11,13 @@ does (asymmetric on even lengths), and the attention is flax's.
 In the JAX package's bf16 mode only the two convs compute in bf16: the
 float32 sinusoidal table promotes the stream, so both transformer layers
 and the head compute in float32 from bf16-rounded weights
-(`promote_after`). The sliding-window cluster diarizer (`ClusterDiarizer`,
-which clusters with sklearn) is not ported.
+(`promote_after`).
+
+`ClusterDiarizer` is the sliding-window cluster diarizer: VAD, 1.5 s
+windows every 0.75 s, one batched embedding forward, average-linkage
+cosine clustering (`models/clustering.py`, sklearn's labels without
+sklearn), windows joined into segments at label changes and labels
+renumbered by first appearance.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ..runtime.precision import (dequantize_audio, exact_float32, promote_after,
                                  resolve_compute_dtype)
 from . import features
 from .asr import LN_EPS
+from .clustering import agglomerative_cosine_average
 from .punctuation import MultiHeadAttention
 from .vad import VADConfig, segment_probs
 
@@ -219,3 +225,95 @@ class SegmentationEngine:
     def is_overlap(self, audio: np.ndarray, sr: int = 16000) -> bool:
         """Whether any two slots are active at once."""
         return bool(self.detect_overlap(audio, sr=sr))
+
+
+# ---------------- sliding-window cluster diarizer ----------------
+
+
+@dataclass
+class DiarizeConfig:
+    window: float = 1.5  # s, embedding window
+    hop: float = 0.75
+    min_window: float = 0.5  # shorter tails are dropped
+    clustering_threshold: float = 0.6  # cosine distance for AHC
+    min_segment: float = 0.3
+
+
+class ClusterDiarizer:
+    """VAD -> sliding windows -> batched embeddings -> AHC. The result is
+    {"0": [(s, e), ...], ...}, labels numbered by first appearance."""
+
+    def __init__(self, speaker_engine, vad_engine=None, cfg: DiarizeConfig | None = None):
+        self.spk = speaker_engine
+        self.vad = vad_engine
+        self.cfg = cfg or DiarizeConfig()
+
+    def _windows(self, speech_segs: list, duration: float) -> list:
+        win, hop = self.cfg.window, self.cfg.hop
+        out = []
+        for s, e in speech_segs:
+            t = s
+            while t < e:
+                w_end = min(t + win, e)
+                if w_end - t >= self.cfg.min_window or not out:
+                    out.append((t, w_end))
+                t += hop
+                if w_end >= e:
+                    break
+        return out
+
+    def _cluster(self, embs: np.ndarray, n_speakers: int | None) -> np.ndarray:
+        if len(embs) == 1:
+            return np.zeros(1, np.int64)
+        norm = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-9)
+        if n_speakers is not None and n_speakers >= 1:
+            return agglomerative_cosine_average(norm, n_clusters=min(n_speakers, len(embs)))
+        return agglomerative_cosine_average(
+            norm, distance_threshold=self.cfg.clustering_threshold)
+
+    def diarize(self, audio: np.ndarray, sr: int = 16000,
+                n_speakers: int | None = None) -> dict:
+        audio = np.asarray(audio, np.float32)
+        duration = len(audio) / sr
+        speech = (self.vad.vad_detection(audio, sr=sr) if self.vad is not None
+                  else [[0.0, duration]])
+        if not speech:
+            return {}
+        wins = self._windows(speech, duration)
+        if not wins:
+            return {}
+        clips = [audio[int(s * sr): int(e * sr)] for s, e in wins]
+        return self.diarize_from_windows(wins, self.spk.embed_batch(clips, sr=sr), n_speakers)
+
+    def diarize_from_windows(self, wins: list, embs: np.ndarray,
+                             n_speakers: int | None = None) -> dict:
+        """Clusters given (window, embedding) pairs into a diarization;
+        zero embeddings are left out. A segment runs while the label stays
+        and the windows touch; at a change the boundary is the midpoint of
+        the overlap."""
+        valid = np.linalg.norm(embs, axis=1) > 0
+        wins = [w for w, v in zip(wins, valid) if v]
+        embs = np.asarray(embs)[valid]
+        if len(embs) == 0:
+            return {}
+        labels = self._cluster(embs, n_speakers)
+        segments = []
+        cur_label, cur_start, cur_end = None, None, None
+        for (s, e), lab in zip(wins, labels):
+            if lab == cur_label and s <= cur_end:
+                cur_end = e
+            else:
+                if cur_label is not None:
+                    boundary = min(cur_end, s + (cur_end - s) / 2) if s < cur_end else cur_end
+                    segments.append([cur_start, boundary, cur_label])
+                    cur_start = boundary if s < boundary else s
+                else:
+                    cur_start = s
+                cur_label, cur_end = lab, e
+        if cur_label is not None:
+            segments.append([cur_start, cur_end, cur_label])
+        remap: dict = {}
+        for seg in segments:
+            seg[2] = remap.setdefault(seg[2], len(remap))
+        segments = [s for s in segments if (s[1] - s[0]) >= self.cfg.min_segment]
+        return iv.parse_segments(segments)

@@ -2,7 +2,7 @@
 
 Counterpart of targetdiarization_tpu/models/speaker.py (ERes2NetV2,
 `SpeakerEngine.embed_batch`, `get_speaker_embedding`, `is_same_person`,
-`cosine_similarity`). The network is NCHW over (B, C, T, F): the JAX
+`get_target_embedding`, `cosine_similarity`). The network is NCHW over (B, C, T, F): the JAX
 model's NHWC image (B, T, F, C) with the channels moved, so (T, F) stay
 (H, W); before pooling the maps go back to (B, T', F', C) and flatten to
 (B, T', F'·C) as in the JAX model. BatchNorm runs on the checkpoint's
@@ -15,8 +15,10 @@ weights and a bf16-rounded input, except that each BatchNorm's
 rsqrt(var + eps) is rounded to the bf16 type of its running statistics;
 the engine does the same (its BatchNorms keep the compute type).
 
-`get_target_embedding` (HDBSCAN over per-segment embeddings, from
-sklearn) and CAMPlusPlus are not ported.
+`get_target_embedding` clusters per-segment embeddings with the port's
+HDBSCAN (`models/clustering.py`), not sklearn's: the JAX package falls
+back to one cluster where sklearn is missing, the port computes what it
+computes with sklearn. CAMPlusPlus is not ported.
 """
 
 from __future__ import annotations
@@ -252,3 +254,32 @@ class SpeakerEngine:
         """(same, cosine score)."""
         score = cosine_similarity(emb_a, emb_b)
         return bool(score >= threshold), score
+
+    def get_target_embedding(self, audio, sr: int = 16000, vad_segments: list | None = None,
+                             min_cluster_size: int = 2) -> np.ndarray:
+        """An enrollment embedding robust to other voices in the clip: the
+        embeddings of the VAD segments of at least 0.3 s, clustered by
+        HDBSCAN on unit vectors (`models/clustering.py`), and the mean of
+        the largest cluster's; the mean of all when there are too few or
+        HDBSCAN finds no cluster; the whole clip's embedding when no
+        segment is long enough."""
+        from .clustering import hdbscan_labels
+
+        audio = np.asarray(audio, np.float32)
+        segs = [[0.0, len(audio) / sr]] if vad_segments is None else vad_segments
+        clips = [audio[int(s * sr): int(e * sr)] for s, e in segs]
+        clips = [c for c in clips if c.size >= int(0.3 * sr)]
+        if not clips:
+            return self.get_speaker_embedding(audio, sr)
+        embs = self.embed_batch(clips, sr=sr)
+        embs = embs[~np.any(np.isnan(embs), axis=1) & (np.linalg.norm(embs, axis=1) > 0)]
+        if len(embs) == 0:
+            return np.zeros(EMBED_DIM, np.float32)
+        if len(embs) < max(min_cluster_size, 2):
+            return embs.mean(axis=0)
+        labels = hdbscan_labels(embs / np.linalg.norm(embs, axis=1, keepdims=True),
+                                min_cluster_size=min_cluster_size)
+        core = labels[labels >= 0]
+        if core.size == 0:
+            return embs.mean(axis=0)
+        return embs[labels == np.bincount(core).argmax()].mean(axis=0)

@@ -21,6 +21,17 @@ features from the first to the last speech frame (rolled to the front,
 at most 2998 frames) -> one embedding with the mean over those frames
 removed.
 
+`FusedSeparation.separate_score`: the overlap clips as one int16 batch
+-> MossFormer2 -> Apollo restoration of the streams when the restorer is
+16 kHz-native -> on the streams before restoration: fbank, speech
+probabilities, and embeddings with the mean over each stream's valid
+frames removed -> the streams back as int16.
+
+`FusedASR.transcribe_masked`: each speaker's track as interval masks of
+`analyze`'s device int16 buffer -> fbank -> LFR -> CMVN -> Paraformer ->
+argmax -> CT-Transformer punctuation classes of those ids, when the two
+vocabularies are the same.
+
 The sharded analyze over a mesh of chips and `StreamChunkAnalyzer` are
 not ported.
 """
@@ -35,6 +46,8 @@ from ..models.denoise import denoise_chain_16k, spectral_gate
 from ..ops.loudness import k_weight, lufs
 from ..ops.stft import frame_signal
 from ..runtime.buckets import BucketLadder, pad_to
+from ..runtime.precision import exact_float32, quantize_i16
+from ..runtime.trace import trace
 
 # denser than the engines' ladders: the U-Net runs over the whole rung
 _LADDER = BucketLadder(tuple(int(s * 16000) for s in (1, 2, 4, 8, 10, 16, 22, 30)))
@@ -159,7 +172,7 @@ class FusedFrontend:
 
         n = len(audio)
         bucket = _LADDER.bucket(max(n, 1))
-        with torch.inference_mode():
+        with trace("fused/analyze"), torch.inference_mode():
             dev = self._analyze_device(self._upload(audio, bucket), n, bucket)
             host = {k: v.cpu().numpy() for k, v in dev.items()}
         t = features.num_frames(n)
@@ -208,9 +221,180 @@ class FusedFrontend:
         audio = audio[:_LADDER.rungs[-1]]
         n = len(audio)
         bucket = _LADDER.bucket(max(n, 1))
-        with torch.inference_mode():
+        with trace("fused/enroll"), torch.inference_mode():
             host = {k: v.cpu().numpy() for k, v in
                     self._enroll_device(self._upload(audio, bucket), n, bucket).items()}
         t = features.num_frames(n)
         return {"emb": host["emb"], "vad_probs": host["vad_probs"][:t],
                 "audio": host["audio_i16"][:n].astype(np.float32) / 32768.0}
+
+
+def _n_frames(n_valid: torch.Tensor) -> torch.Tensor:
+    """`features.num_frames` of a tensor of sample counts."""
+    return torch.where(n_valid < 400, 0, 1 + torch.div(n_valid - 400, 160, rounding_mode="floor"))
+
+
+class FusedSeparation:
+    """Separation of the overlap clips and the scoring of both streams in
+    one device pass: the clips pad to one rung of LADDER and the batch to
+    one of N_LADDER; a clip above the top rung, an empty clip or more than
+    four clips give None, and the caller takes the windowed path."""
+
+    LADDER = BucketLadder((32000, 64000, 96000, 160000))
+    N_LADDER = BucketLadder((1, 2, 4))
+
+    def __init__(self, sep, spk, vad=None, restorer=None):
+        self.sep, self.spk, self.vad = sep, spk, vad
+        # restoration in the same pass only when the restorer runs at 16 kHz
+        self.restorer = restorer if (restorer is not None
+                                     and getattr(restorer.model, "sr", 0) == 16000) else None
+        self.device = sep.device
+
+    def _device(self, clips_i16: torch.Tensor, lengths: torch.Tensor) -> dict:
+        nb, bucket = clips_i16.shape
+        wav = clips_i16.float() / 32768.0
+        est = self.sep.model(wav.to(self.sep.compute_dtype), lengths).float()  # (nb, 2, bucket)
+        streams = est.reshape(nb * 2, bucket)
+        out_streams = streams
+        if self.restorer is not None:
+            out_streams = self.restorer.forward(
+                streams.to(self.restorer.compute_dtype).float())
+        # embeddings and speech probabilities of the streams before restoration
+        nf = _n_frames(torch.repeat_interleave(lengths, 2))
+        feats = features.fbank(streams)  # (2 nb, T, 80)
+        m = (torch.arange(feats.shape[1], device=self.device)[None, :, None]
+             < nf[:, None, None]).float()
+        mean = (feats * m).sum(dim=1, keepdim=True) / torch.clamp_min(
+            m.sum(dim=1, keepdim=True), 1.0)
+        out = {"streams_i16": torch.clamp(torch.round(out_streams * 32768.0), -32768, 32767
+                                          ).to(torch.int16).reshape(nb, 2, bucket),
+               "embs": self.spk.embed_feats((feats - mean) * m, nf).reshape(nb, 2, -1)}
+        if self.vad is not None:
+            logits = self.vad.model(feats.to(self.vad.compute_dtype), nf)
+            out["vad_probs"] = torch.softmax(logits, dim=-1)[..., 1].float().reshape(nb, 2, -1)
+        return out
+
+    def separate_score(self, clips: list, sr: int = 16000) -> list | None:
+        """Per clip {"streams": (2, n) float32, "embs": (2, 192), "vads":
+        [segments of stream 0, of stream 1]} (each segment clipped to the
+        clip), or None for the windowed path."""
+        from ..models.vad import VADConfig, segment_probs
+
+        clips = [np.asarray(c, np.float32) for c in clips]
+        if sr != 16000:
+            from ..ops.resample import resample_poly_np
+
+            clips = [resample_poly_np(c, 16000, sr) for c in clips]
+        top = self.LADDER.rungs[-1]
+        if not clips or any(len(c) > top or len(c) == 0 for c in clips) \
+                or len(clips) > self.N_LADDER.rungs[-1]:
+            return None
+        bucket = self.LADDER.bucket(max(len(c) for c in clips))
+        nb = self.N_LADDER.bucket(len(clips))
+        batch = np.zeros((nb, bucket), np.int16)
+        lengths = np.full(nb, 1, np.int64)
+        for i, c in enumerate(clips):
+            batch[i, : len(c)] = quantize_i16(c)
+            lengths[i] = len(c)
+        with trace("fused/separate"), torch.inference_mode(), exact_float32():
+            dev = self._device(torch.from_numpy(batch).to(self.device),
+                               torch.from_numpy(lengths).to(self.device))
+            host = {k: v.cpu().numpy() for k, v in dev.items()}
+        out = []
+        for i, c in enumerate(clips):
+            n = len(c)
+            streams = host["streams_i16"][i, :, :n].astype(np.float32) / 32768.0
+            if "vad_probs" in host:
+                t, dur = features.num_frames(n), n / 16000.0
+                vads = [[[max(0.0, s), min(dur, e)] for s, e in
+                         segment_probs(host["vad_probs"][i, j, :t], VADConfig())]
+                        for j in range(2)]
+            else:
+                vads = [[[0.0, n / 16000.0]]] * 2
+            out.append({"streams": streams, "embs": host["embs"][i], "vads": vads})
+        return out
+
+
+class FusedASR:
+    """Paraformer ASR and punctuation of every speaker's track in one
+    device pass over `FusedFrontend.analyze`'s int16 buffer: each track is
+    the buffer under the speaker's intervals (sample ranges in float32),
+    speakers pad to a rung of N_SPK_LADDER and their interval lists to one
+    of SEG_LADDER. Punctuation runs on the ASR's ids only when the two
+    engines share a vocabulary."""
+
+    N_SPK_LADDER = BucketLadder((1, 2, 4, 8))
+    SEG_LADDER = BucketLadder((2, 4, 8, 16, 32))
+
+    def __init__(self, asr_engine, punc_engine=None):
+        self.asr = asr_engine
+        self.punc = punc_engine if (punc_engine is not None and punc_engine.tokenizer.vocab
+                                    == asr_engine.tokenizer.vocab) else None
+        self.device = asr_engine.device
+
+    def _device(self, audio_i16: torch.Tensor, ranges: torch.Tensor,
+                n_lfr: torch.Tensor) -> dict:
+        from ..models.asr import LFR_M, LFR_N
+
+        asr, punc = self.asr, self.punc
+        bucket = audio_i16.shape[-1]
+        audio = audio_i16.float() / 32768.0
+        t_idx = torch.arange(bucket, device=self.device, dtype=torch.float32)[None, None, :]
+        seg_m = (t_idx >= ranges[..., :1]) & (t_idx < ranges[..., 1:2])
+        tracks = audio[None, :] * seg_m.any(dim=1)  # (n_spk, bucket)
+        feats = features.lfr(features.fbank(tracks), LFR_M, LFR_N)
+        if asr.cmvn is not None:
+            feats = features.apply_cmvn(feats, *asr.cmvn)
+        mask = (torch.arange(feats.shape[1], device=self.device)[None, :]
+                < n_lfr[:, None]).float()
+        out = asr.model(feats.to(asr.compute_dtype), mask.to(asr.compute_dtype))
+        ids = torch.argmax(out["logits"], dim=-1)
+        res = {"ids": ids, "n_tokens": out["n_tokens"], "fire_frames": out["fire_frames"]}
+        if punc is not None:
+            tok_mask = (torch.arange(ids.shape[1], device=self.device)[None, :]
+                        < out["n_tokens"][:, None]).float()
+            plogits = punc.model(ids, tok_mask.to(punc.compute_dtype)).float()
+            res["punc_cls"] = torch.argmax(plogits, dim=-1)
+        return res
+
+    def transcribe_masked(self, audio_dev_i16: torch.Tensor, n_samples: int,
+                          spk_ranges: list) -> list:
+        """spk_ranges: per speaker a list of (start_s, end_s). Per speaker
+        {"text", "timestamp", "punc_cls"}: the ASR result with `<blank>`,
+        `<s>`, `</s>` and `<unk>` left out, and a punctuation class per
+        kept character (None without punctuation)."""
+        from ..models.asr import LFR_N, fire_frames_to_timestamps
+
+        b = self.N_SPK_LADDER.bucket(max(len(spk_ranges), 1))
+        max_segs = self.SEG_LADDER.bucket(max(max((len(r) for r in spk_ranges), default=1), 1))
+        ranges = np.zeros((b, max_segs, 2), np.float32)
+        n_lfr = np.ones(b, np.int64)
+        for i, segs in enumerate(spk_ranges):
+            end_max = 0.0
+            for j, (s, e) in enumerate(segs[:max_segs]):
+                ranges[i, j] = (s * 16000.0, e * 16000.0)
+                end_max = max(end_max, e)
+            n_valid = min(int(end_max * 16000), n_samples)
+            n_lfr[i] = max(-(-features.num_frames(n_valid) // LFR_N), 1)
+        with trace("fused/asr"), torch.inference_mode(), exact_float32():
+            dev = self._device(audio_dev_i16, torch.from_numpy(ranges).to(self.device),
+                               torch.from_numpy(n_lfr).to(self.device))
+            host = {k: v.cpu().numpy() for k, v in dev.items()}
+        results = []
+        vocab = self.asr.tokenizer.vocab
+        for i in range(len(spk_ranges)):
+            n_tok = int(host["n_tokens"][i])
+            ts_all = fire_frames_to_timestamps(host["fire_frames"][i, :n_tok], int(n_lfr[i]))
+            chars, ts, pcls = [], [], []
+            for j, tid in enumerate(host["ids"][i, :n_tok]):
+                name = vocab[int(tid)]
+                if name in ("<blank>", "<s>", "</s>", "<unk>"):
+                    continue  # chars, timestamps and classes stay aligned
+                chars.append(name)
+                if j < len(ts_all):
+                    ts.append(ts_all[j])
+                if "punc_cls" in host:
+                    pcls.append(int(host["punc_cls"][i, j]))
+            results.append({"text": "".join(chars), "timestamp": ts,
+                            "punc_cls": pcls if "punc_cls" in host else None})
+        return results

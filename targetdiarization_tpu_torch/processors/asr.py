@@ -100,6 +100,14 @@ class ASRProcessor:
                     r["text"] = self.punc.punctuation_restore(r["text"])
         return results
 
+    def detect_language(self, text: str = "") -> str:
+        """"zh" when at least a quarter of the characters (and one) are CJK
+        ideographs, else "en"; "unknown" for no text."""
+        if text:
+            cjk = sum(1 for ch in text if "\u4e00" <= ch <= "\u9fff")
+            return "zh" if cjk >= max(1, len(text) // 4) else "en"
+        return "unknown"
+
     # ---------------- punctuation ----------------
 
     @property

@@ -30,7 +30,10 @@ Layout rules:
   stride-dilated input) -> flipped in both spatial axes, then
   conv_transpose2d's (in, out, kh, kw);
 - BatchNorm: `params` scale/bias -> weight/bias, `batch_stats` mean/var
-  -> running_mean/running_var.
+  -> running_mean/running_var;
+- Apollo's band banks (`uni_bn_w` (79, 2 bw + 1, D), `uni_out_w`
+  (79, D, 4 bw), the tail band's, their biases and norms) keep their
+  layouts.
 """
 
 from __future__ import annotations
@@ -243,7 +246,15 @@ def eres2netv2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+def apollo_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.restoration.Apollo`: the modules keep the JAX
+    names, Dense kernels become Linear weights, and the per-band banks
+    (`uni_*`, `tail_*`), the RMSNorm weights and the depthwise kernels
+    (K, 1, C) keep their layouts."""
+    return _to_tensors(_dense_rules(flatten(tree.get("params", tree)), ()))
+
+
 CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_state_dict,
               "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict,
               "TDFUNet": tdfunet_state_dict, "SegmentationNet": segmentation_state_dict,
-              "ERes2NetV2": eres2netv2_state_dict}
+              "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict}

@@ -3,7 +3,7 @@
 Counterpart of targetdiarization_tpu/runtime/registry.py::from_pretrained:
 the checkpoint's own `model_name` picks the class. The ported models are
 MossFormer2, Paraformer, CTTransformerPunc, FsmnVADNet, TDFUNet,
-SegmentationNet and ERes2NetV2; any other name raises.
+SegmentationNet, ERes2NetV2 and Apollo; any other name raises.
 """
 
 from __future__ import annotations
@@ -19,13 +19,15 @@ def get_model_cls(name: str):
     from ..models.denoise import TDFUNet
     from ..models.diarization import SegmentationNet
     from ..models.punctuation import CTTransformerPunc
+    from ..models.restoration import Apollo
     from ..models.separation import MossFormer2
     from ..models.speaker import ERes2NetV2
     from ..models.vad import FsmnVADNet
 
     models = {"MossFormer2": MossFormer2, "Paraformer": Paraformer,
               "CTTransformerPunc": CTTransformerPunc, "FsmnVADNet": FsmnVADNet,
-              "TDFUNet": TDFUNet, "SegmentationNet": SegmentationNet, "ERes2NetV2": ERes2NetV2}
+              "TDFUNet": TDFUNet, "SegmentationNet": SegmentationNet, "ERes2NetV2": ERes2NetV2,
+              "Apollo": Apollo}
     if name not in models:
         raise KeyError(f"model {name!r} is not ported; ported: {sorted(models)}")
     return models[name]

@@ -258,8 +258,17 @@ def test_run_modules_matches_jax(processors, rng):
 
 @pytest.mark.parametrize("stage", ["restore", "enhance", {"restore_audio": {}}])
 def test_run_modules_refuses_unported_stages(stage, processors):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        processors[0].run_modules(np.zeros(SR, np.float32), SR, [stage])
+    """Enhancement is not ported and raises. Restoration is (Apollo, since
+    the infer slice): without a restorer it passes the audio through, as
+    the JAX package's does (`test_torch_restoration.py` runs it with one)."""
+    x = np.linspace(-0.5, 0.5, SR).astype(np.float32)
+    if stage == "enhance":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            processors[0].run_modules(x, SR, [stage])
+        return
+    assert processors[0].restorer is None
+    np.testing.assert_array_equal(processors[0].run_modules(x, SR, [stage]), x)
+    np.testing.assert_array_equal(processors[1].run_modules(x, SR, [stage]), x)
 
 
 def test_denoise_without_denoiser_is_the_spectral_gate(rng):

@@ -1,9 +1,9 @@
 """The port runs where JAX does not exist.
 
-The machine with the card has PyTorch and no jax or flax, so the port and
-chip_smoke.py must import and run with jax, flax and the JAX package
-unimportable: the separator, the ASR stage and the fused front end on the
-shipped checkpoints.
+The machine with the card has PyTorch and no jax, flax or scikit-learn, so
+the port and chip_smoke.py must import and run with jax, flax, sklearn and
+the JAX package unimportable: the separator, the ASR stage, the fused front
+end and `TargetDiarization.infer` on the shipped checkpoints.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -23,7 +23,7 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
 
@@ -57,7 +57,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     emb = fe.enroll(mix)["emb"]
     assert emb.shape == (192,) and np.isfinite(emb).all()
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"))
     assert not leaked, leaked
     print("ISOLATED_OK", len(mods))
 """)
@@ -75,7 +75,7 @@ _BLOCKED_ASR = textwrap.dedent("""
 
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
 
@@ -90,10 +90,45 @@ _BLOCKED_ASR = textwrap.dedent("""
     assert res["text"] and len(res["timestamp"]) >= 1, res
     assert ap.vad_detection(audio) and ap.punctuation_restore("天地人")
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "targetdiarization_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"))
     assert not leaked, leaked
     print("ASR_ISOLATED_OK", res["text"])
 """)
+
+
+_BLOCKED_INFER = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)  # beside the other test workers' threads
+    from chip_smoke import dialogue, enrollment, load_system
+    td = load_system(device="cpu", separation="checkpoints/sep-bootstrap")
+    spk, results, target_audio = td.infer(dialogue(2.5, seed=1, overlap=True),
+                                          enrollment(3.0, seed=9))
+    assert spk and results and target_audio is not None and np.isfinite(target_audio).all()
+    assert any(r["type"] == "overlap" for r in results), results
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu"))
+    assert not leaked, leaked
+    print("INFER_ISOLATED_OK", len(results))
+""")
+
+
+def test_target_diarization_infer_runs_without_jax_or_sklearn():
+    """The whole offline pipeline on the CPU: 2.5 s of overlapped dialogue
+    with a target, so the re-clustering (AHC) and the separator run."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_INFER], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "INFER_ISOLATED_OK" in proc.stdout
 
 
 def test_asr_processor_runs_without_jax():
