@@ -21,8 +21,6 @@ float32 too (`promote_after` with no bf16 module).
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -36,9 +34,6 @@ from ..runtime.buckets import BucketLadder
 from ..runtime.precision import exact_float32, promote_after, resolve_compute_dtype
 
 EPS = 1.1920928955078125e-07  # float32 eps
-# the band attention's scores of this many (stream, frame) rows at a time:
-# (rows, heads, K, K) float32 is about 210 MB at 1024 rows, 8 heads, 80 bands
-_ATTN_ROWS = 1024
 
 
 class RMSNorm(nn.Module):
@@ -89,12 +84,8 @@ class BandRoformer(nn.Module):
         qkv = self.qkv(self.in_norm(x)).reshape(b, k, t, 3, self.heads, hd)
         qkv = qkv.permute(0, 2, 3, 4, 1, 5).reshape(b * t, 3, self.heads, k, hd)
         cos, sin = _rope_tables(k, hd, x.device)
-        out = torch.empty(b * t, self.heads, k, hd, dtype=x.dtype, device=x.device)
-        scale = 1.0 / math.sqrt(hd)
-        for r in range(0, b * t, _ATTN_ROWS):
-            q, kk, v = qkv[r: r + _ATTN_ROWS].unbind(1)
-            att = (_rope(q, cos, sin) @ _rope(kk, cos, sin).transpose(-1, -2)) * scale
-            out[r: r + _ATTN_ROWS] = torch.softmax(att, dim=-1) @ v
+        q, kk, v = qkv.unbind(1)
+        out = F.scaled_dot_product_attention(_rope(q, cos, sin), _rope(kk, cos, sin), v)
         return out.reshape(b, t, self.heads, k, hd).permute(0, 3, 1, 2, 4).reshape(b, k, t, n)
 
     def forward(self, x):

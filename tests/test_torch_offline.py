@@ -18,16 +18,17 @@ Limits, and why:
 - texts equal where no clip went through the separator; where one did,
   its streams agree within 1 LSB of int16 (`test_torch_fused_separation.py`),
   which can flip an argmax of the bootstrap Paraformer anywhere in that
-  speaker's combined track, so the texts are held to a character error
-  rate of at most 0.1 over all entries (`chip_smoke.py` holds the card's
-  float32 kernels against float32 plain to the same limit);
+  speaker's combined track, so the texts over all entries may differ in
+  one character in 33 (a character error rate of 0.03), and in one
+  character where they are shorter (`chip_smoke.py` holds the card's
+  float32 kernels against float32 plain to CER 0.03);
 - the target audio of equal length and at least 30 dB SI-SDR apart.
 """
 
 import os
+from unittest import mock
 
 import jax
-import numpy as np
 import pytest
 import torch
 
@@ -60,9 +61,11 @@ def ckpt(name: str) -> str:
     return os.path.join(REPO, "checkpoints", name)
 
 
-def build_both(**td_kw):
-    """The port's and the JAX package's systems as the server builds them."""
-    kw = {"device": "cpu", "compute_dtype": "float32"}
+def build_both(dtype: str = "float32", **td_kw):
+    """The port's and the JAX package's systems as the server builds them,
+    every engine computing in `dtype` (the JAX engines read it from
+    TD_COMPUTE_DTYPE as they are made)."""
+    kw = {"device": "cpu", "compute_dtype": dtype}
     ours = TargetDiarization(
         TargetASR(AudioProcessor(ckpt("sep-bootstrap"), denoise_model=ckpt("den-bootstrap"),
                                  restoration_model=ckpt("rest-bootstrap"), **kw),
@@ -71,16 +74,17 @@ def build_both(**td_kw):
                   embedding_model=ckpt("spk-bootstrap"), **kw),
         segmentation_engine=SegmentationEngine.from_pretrained(ckpt("seg-bootstrap"), **kw),
         **td_kw)
-    theirs = JaxTargetDiarization(
-        JaxTargetASR(JaxAudioProcessor(denoise_model=ckpt("den-bootstrap"),
-                                       separation_model=ckpt("sep-bootstrap"),
-                                       restoration_model=ckpt("rest-bootstrap")),
-                     JaxASRProcessor(vad_model=ckpt("vad-bootstrap"),
-                                     asr_model=ckpt("asr-bootstrap"),
-                                     punc_model=ckpt("punc-bootstrap")),
-                     embedding_model=ckpt("spk-bootstrap")),
-        segmentation_engine=JaxSegmentationEngine.from_pretrained(ckpt("seg-bootstrap")),
-        **td_kw)
+    with mock.patch.dict(os.environ, {"TD_COMPUTE_DTYPE": dtype}):
+        theirs = JaxTargetDiarization(
+            JaxTargetASR(JaxAudioProcessor(denoise_model=ckpt("den-bootstrap"),
+                                           separation_model=ckpt("sep-bootstrap"),
+                                           restoration_model=ckpt("rest-bootstrap")),
+                         JaxASRProcessor(vad_model=ckpt("vad-bootstrap"),
+                                         asr_model=ckpt("asr-bootstrap"),
+                                         punc_model=ckpt("punc-bootstrap")),
+                         embedding_model=ckpt("spk-bootstrap")),
+            segmentation_engine=JaxSegmentationEngine.from_pretrained(ckpt("seg-bootstrap")),
+            **td_kw)
     return ours, theirs
 
 
@@ -107,7 +111,8 @@ def same_infer(got, want, separated: bool):
     if separated:
         text_g = "".join(strip_punct(r["text"]) for r in g_res)
         text_w = "".join(strip_punct(r["text"]) for r in w_res)
-        assert cer(text_w, text_g) <= 0.1, (g_res, w_res)
+        edits = round(cer(text_w, text_g) * len(text_w)) if text_w else len(text_g)
+        assert edits <= max(1, 0.03 * len(text_w)), (g_res, w_res)
     assert (g_audio is None) == (w_audio is None)
     if g_audio is not None:
         assert g_audio.shape == w_audio.shape

@@ -116,15 +116,13 @@ def test_band_roformer(rng):
     _close(_run(_port(tr.BandRoformer(16), params), x), _apply(mod, params, jnp.asarray(x)))
 
 
-def test_band_attention_in_row_chunks(rng, monkeypatch):
-    """Rows of (stream, frame) attend in chunks; chunks of 5 rows give the
-    same output as one chunk."""
-    x = rng.standard_normal((2, 12, 9, 16)).astype(np.float32)
+def test_band_attention_over_many_rows(rng):
+    """80 bands attending for 600 (stream, frame) rows in one call, as at
+    the restorer's rungs, against the JAX module's explicit scores."""
+    x = rng.standard_normal((2, 80, 300, 16)).astype(np.float32)
     mod = jr.BandRoformer(16)
-    port = _port(tr.BandRoformer(16), _init(mod, jnp.asarray(x)))
-    whole = _run(port, x)
-    monkeypatch.setattr(tr, "_ATTN_ROWS", 5)
-    np.testing.assert_allclose(_run(port, x), whole, rtol=0, atol=1e-6)
+    params = _init(mod, jnp.asarray(x))
+    _close(_run(_port(tr.BandRoformer(16), params), x), _apply(mod, params, jnp.asarray(x)))
 
 
 def test_conv_act_norm_and_bsnet(rng):
