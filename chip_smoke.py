@@ -6,9 +6,11 @@ its plain PyTorch version, drive `AudioProcessor.separate_speaker` on the
 speech of the kind the bootstrap models were trained on, and drive the
 front end (`FusedFrontend.analyze` and `enroll`, and
 `AudioProcessor.denoise_vocal`, on `checkpoints/{den,vad,seg,spk}-bootstrap`)
-on a synthetic two-voice conversation, and drive the whole offline pipeline,
+on a synthetic two-voice conversation, drive the whole offline pipeline,
 `TargetDiarization.infer`, on the eight shipped checkpoints it loads, with
-the 512/24 separator and Apollo restoration (`checkpoints/rest-bootstrap`).
+the 512/24 separator and Apollo restoration (`checkpoints/rest-bootstrap`),
+and drive the streaming pipeline, `TargetDiarizationStream.infer_stream`,
+on the server's `build_model()`: one session, then four at once.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -22,7 +24,11 @@ against its plain version at the main path's shapes and types, with its host-inc
 separator (launch counts, wall times, a profiler breakdown of one call,
 agreement with the plain paths), the ASR stage, the front end and `infer`
 (three calls: wall times, kernel launches per trace span, a profiler
-breakdown by span and by kernel, agreement). The line before the last
+breakdown by span and by kernel, agreement) and the stream (warm-up, one
+20 s session's intake and emission latencies, launches per span,
+synchronous against asynchronous flushes, a profiler breakdown, agreement
+with the plain path, four concurrent paced sessions against each alone).
+The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits nonzero and prints no result. It needs CUDA and the repository: with no
@@ -1543,6 +1549,364 @@ def check_infer() -> dict:
     return totals
 
 
+# ---------------- the slice: TargetDiarizationStream.infer_stream ----------------
+
+STREAM_SEEDS = (13, 14, 15, 16)  # s1 is the first; s4 runs all four at once
+
+
+def load_stream(compute_dtype: str | None = None, device: str = "cuda"):
+    """The server's model (`serve/server.py::build_model`) on `device`, in
+    the card's types unless `compute_dtype`."""
+    from unittest import mock
+
+    from targetdiarization_tpu_torch.serve.server import build_model
+
+    with mock.patch.dict(os.environ, {"TD_COMPUTE_DTYPE": compute_dtype} if compute_dtype
+                         else {}):
+        return build_model(device=device)
+
+
+def record_session(model) -> dict:
+    """Wraps `model.asr_audio_streaming` and the analyzer's `analyze_chunk`
+    (until `unrecord`): "flushes" holds each flush's (start s, seconds,
+    whether the overlap check fired), in order (a session's flushes run in
+    order on one worker), and "decisions" each chunk decision's (buffer
+    seconds, speaker cosine)."""
+    rec = {"flushes": [], "decisions": []}
+    run, analyze = model.asr_audio_streaming, model._stream_analyzer.analyze_chunk
+
+    def recording(audio, is_overlap, state, *a, **k):
+        rec["flushes"].append((round(state.current_time, 3), round(len(audio) / SR, 3),
+                               bool(is_overlap)))
+        return run(audio, is_overlap, state, *a, **k)
+
+    def analyzing(combined, chunk):
+        out = analyze(combined, chunk)
+        rec["decisions"].append((round(len(combined) / SR, 3), out["similarity"]))
+        return out
+
+    model.asr_audio_streaming = recording
+    model._stream_analyzer.analyze_chunk = analyzing
+    return rec
+
+
+def unrecord(model) -> None:
+    del model.asr_audio_streaming
+    del model._stream_analyzer.analyze_chunk
+
+
+def cosine_moves(got: list, want: list) -> dict:
+    """The speaker cosines of two runs' decisions, where their buffers are
+    the same length in the same order (until the first that is not)."""
+    n = 0
+    while n < min(len(got), len(want)) and got[n][0] == want[n][0]:
+        n += 1
+    diffs = [abs(g[1] - w[1]) for g, w in zip(got[:n], want[:n])]
+    return {"decisions": [len(got), len(want)], "aligned": n,
+            "cos_max_abs_diff": max(diffs, default=None)}
+
+
+def stream_session(model, audio: np.ndarray, enroll: np.ndarray, pace: float = 0.0,
+                   t_start: float | None = None) -> dict:
+    """One `infer_stream` session: `audio` as 1 s int16 chunks, the k-th fed
+    at t_start + k * pace (unpaced with pace 0), with `enroll` as the
+    target. Intake is how long the pipeline holds each chunk before it
+    asks for the next; emission is the pipeline's own `emission_s`."""
+    pcm = np.clip(np.round(audio * 32767.0), -32768, 32767).astype(np.int16)
+    intake, metrics = [], {}
+
+    def chunks():
+        t0 = t_start if t_start is not None else time.perf_counter()
+        for k, s in enumerate(range(0, len(pcm), SR)):
+            if pace:
+                time.sleep(max(0.0, t0 + k * pace - time.perf_counter()))
+            t = time.perf_counter()
+            yield pcm[s: s + SR]
+            intake.append(time.perf_counter() - t)
+
+    t = time.perf_counter()
+    results = [r for _, res, _ in model.infer_stream(chunks(), target_file=enroll,
+                                                      metrics=metrics) for r in res]
+    wall = time.perf_counter() - t
+    for r in results:
+        if set(r) != {"speaker", "timerange", "text", "type"} or r["speaker"] not in ("0", "1") \
+                or r["type"] not in ("single", "overlap") or not r["text"] \
+                or not r["timerange"][0] <= r["timerange"][1] <= len(audio) / SR + 1e-6:
+            raise AssertionError(f"infer_stream: bad result {r}")
+    return {"results": [(r["speaker"], r["type"], r["timerange"], r["text"]) for r in results],
+            "wall_s": wall, "intake_s": intake, "emission_s": metrics.get("emission_s", [])}
+
+
+def pct_ms(values: list, q: float) -> float | None:
+    return float(np.percentile(np.asarray(values) * 1e3, q)) if values else None
+
+
+def session_summary(run: dict, audio_s: float, flushes: list) -> dict:
+    return {"audio_s": audio_s, "wall_s": run["wall_s"], "rtfx": audio_s / run["wall_s"],
+            "intake_ms_p50": pct_ms(run["intake_s"], 50), "intake_ms_p99": pct_ms(run["intake_s"], 99),
+            "emission_ms_p50": pct_ms(run["emission_s"], 50),
+            "emission_ms_p99": pct_ms(run["emission_s"], 99),
+            "chunks": len(run["intake_s"]), "flushes": len(flushes),
+            "overlap_flushes": sum(f[2] for f in flushes), "segments": len(run["results"])}
+
+
+def session_agreement(got: dict, want: dict, got_flushes: list, want_flushes: list) -> dict:
+    """One session against another: the same flushes (start, length,
+    overlap check), the same results' speakers and types, the largest
+    timerange gap, and the CER of all texts joined (every flush goes
+    through the separator in stream mode)."""
+    g, w = got["results"], want["results"]
+    same = len(g) == len(w) and all(a[:2] == b[:2] for a, b in zip(g, w))
+    gap = max((abs(x - y) for a, b in zip(g, w) for x, y in zip(a[2], b[2])),
+              default=0.0) if same else None
+    text_g = "".join(strip_punct(r[3]) for r in g)
+    text_w = "".join(strip_punct(r[3]) for r in w)
+    return {"flushes_equal": got_flushes == want_flushes,
+            "flushes": [len(got_flushes), len(want_flushes)],
+            "results": [len(g), len(w)], "speakers_types_equal": same,
+            "timerange_max_gap_s": gap, "texts_equal": [r[3] for r in g] == [r[3] for r in w],
+            "cer": cer(text_w, text_g)}
+
+
+def within_s1_limits(a: dict) -> bool:
+    """s1's limits: the same flushes, speakers and types, timeranges within
+    10 ms, CER <= 0.03 (a stream difference of one int16 step can flip an
+    argmax of the bootstrap Paraformer; the limit of `check_infer`)."""
+    return (a["flushes_equal"] and a["speakers_types_equal"] and a["results"][0] > 0
+            and a["timerange_max_gap_s"] <= 0.01 and a["cer"] <= 0.03)
+
+
+def mb_stats(model) -> dict:
+    """The MicroBatchers' counts: the analyzer's, the ASR's, the separator's."""
+    return {name: eng._mb.stats() for name, eng in (
+        ("stream_chunk", model._stream_analyzer), ("asr", model.tasr.asrp.asr),
+        ("separator", model.ap.separator)) if eng._mb is not None}
+
+
+def mb_delta(after: dict, before: dict) -> dict:
+    out = {}
+    for name, a in after.items():
+        b = before.get(name, {"batches": 0, "items": 0, "sizes": {}})
+        sizes = {k: v - b["sizes"].get(k, 0) for k, v in a["sizes"].items()
+                 if v - b["sizes"].get(k, 0)}
+        out[name] = {"dispatches": a["batches"] - b["batches"], "items": a["items"] - b["items"],
+                     "coalesced_dispatches": sum(v for k, v in sizes.items() if k > 1),
+                     "items_per_dispatch": sizes}
+    return out
+
+
+def concurrent_sessions(model, inputs: list, enroll: np.ndarray) -> tuple[list, list, float]:
+    """The sessions of `inputs` in threads at once, each paced at real
+    time from one start; (runs, flushes per session, wall seconds)."""
+    import threading
+
+    runs, flushes, errors = [None] * len(inputs), [[] for _ in inputs], []
+    run = model.asr_audio_streaming
+    owner = threading.local()
+
+    def recording(audio, is_overlap, state, *a, **k):
+        flushes[state.session].append((round(state.current_time, 3), round(len(audio) / SR, 3),
+                                       bool(is_overlap)))
+        return run(audio, is_overlap, state, *a, **k)
+
+    model.asr_audio_streaming = recording
+    t_start = time.perf_counter() + 0.5
+
+    def one(i):
+        owner.i = i
+        try:
+            runs[i] = stream_session(model, inputs[i], enroll, pace=1.0, t_start=t_start)
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    from targetdiarization_tpu_torch.pipeline import streaming
+
+    state_init = streaming.StreamState.__init__
+
+    def tagged(self, *a, **k):  # each session's state knows its session
+        state_init(self, *a, **k)
+        self.session = getattr(owner, "i", 0)
+
+    streaming.StreamState.__init__ = tagged
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(inputs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        streaming.StreamState.__init__ = state_init
+        del model.asr_audio_streaming
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a concurrent session did not finish in 600 s")
+    return runs, flushes, time.perf_counter() - t_start
+
+
+def check_stream(seconds: float = 20.0, device: str = "cuda") -> dict:
+    import torch
+
+    audio = dialogue(seconds, seed=STREAM_SEEDS[0], overlap=True)
+    enroll = enrollment(8.0, seed=9)
+    audio_s = len(audio) / SR
+    t = time.time()
+    model = load_stream(device=device)
+    load_s = time.time() - t
+    sep = model.ap.separator
+    layers = len(sep.model.mask_net.layers)
+    dtypes = {"separator": str(sep.compute_dtype), "paraformer": str(model.tasr.asrp.asr.compute_dtype),
+              "vad": str(model.tasr.asrp.vad.compute_dtype)}
+    emit("stream_load", load_s=load_s, separator_layers=layers,
+         separator_width=sep.model.mask_net.in_norm.weight.shape[0], **dtypes,
+         async_flush=model.async_flush, max_inflight=model.max_inflight_flushes,
+         microbatch=model._stream_analyzer._mb is not None)
+    if device == "cuda" and (layers != 24 or dtypes["separator"] != "torch.bfloat16"
+                             or not model.async_flush):
+        raise AssertionError(f"build_model did not give the 512/24 bf16 async system: {dtypes}")
+    t = time.time()
+    passes = model.prewarm_streaming(max_sessions=4)
+    torch.cuda.synchronize()
+    emit("stream_prewarm", max_sessions=4, passes=passes, prewarm_s=time.time() - t)
+
+    # s1, the main path: one session, async flushes, unpaced
+    counter = PathCounter(model)
+    per = counter.per_forward
+    rec = record_session(model)
+    reset_launches()
+    s1 = stream_session(model, audio, enroll)
+    s1_launches = read_launches()
+    s1_flushes, s1_decisions = list(rec["flushes"]), list(rec["decisions"])
+    emit("stream_s1", path="bf16 kernels, async flushes",
+         **session_summary(s1, audio_s, s1_flushes), launches=s1_launches,
+         flush_list=s1_flushes, results=s1["results"])
+    if not s1["results"] or not any(f[2] for f in s1_flushes) or any(
+            s1_launches[k] == 0 for k in ("ffconvm", "flash_gated", "dwconv")):
+        raise AssertionError(f"s1: no result, no overlap flush or a kernel never launched: "
+                             f"{s1_launches}, {s1_flushes}")
+
+    # the same session with synchronous flushes: the same results; its
+    # launches by span against those its models' forwards imply
+    rec["flushes"].clear()
+    model.async_flush = False
+    counter.start()
+    s1_sync = stream_session(model, audio, enroll)
+    launches = counter.stop()
+    fw, spans = counter.forwards, counter.spans
+    sync_flushes = list(rec["flushes"])
+    agree = session_agreement(s1_sync, s1, sync_flushes, s1_flushes)
+
+    def span_sum(suffix):
+        rows = [r for name, r in spans.items() if name.endswith(suffix)]
+        return {k: sum(r[k] for r in rows) for k in ("calls", *launches)}
+
+    chunk_span, sep_span = span_sum("fused/stream_chunk"), span_sum("audio/separate_dispatch")
+    rest_span, vad_span = span_sum("audio/restore_audio"), span_sum("asr/vad_detection")
+    asr_span = span_sum("asr/asr_detection")
+    want = {"ffconvm": 5 * layers * fw["separator"], "flash_gated": layers * fw["separator"],
+            "flash_group": 0, "dwconv": sum(per[k] * fw[k] for k in fw)}
+    flush_launches = {k: launches[k] - chunk_span[k] for k in launches}
+    emit("stream_launches", path="bf16 kernels, sync flushes", forwards=fw, per_forward=per,
+         launches=launches, spans=spans, decisions=chunk_span["calls"],
+         flushes=len(sync_flushes),
+         per_decision={k: chunk_span[k] / max(chunk_span["calls"], 1) for k in launches},
+         per_flush={k: flush_launches[k] / max(len(sync_flushes), 1) for k in launches},
+         apollo_dw_shapes=sorted(counter.apollo_shapes), sync_vs_async=agree,
+         sync_session=session_summary(s1_sync, audio_s, sync_flushes))
+    if launches != want:
+        raise AssertionError(f"stream: kernel launches {launches}, want {want} from {fw}")
+    checks = {
+        "stream_chunk: 8 dwconv a decision": chunk_span["dwconv"] == 8 * chunk_span["calls"] > 0
+        and chunk_span["ffconvm"] == 0,
+        "separator: 120/24/48 a forward": sep_span["calls"] == fw["separator"] > 0
+        and (sep_span["ffconvm"], sep_span["flash_gated"], sep_span["dwconv"])
+        == (5 * layers * sep_span["calls"], layers * sep_span["calls"], 2 * layers * sep_span["calls"]),
+        "Apollo: 12 dwconv a forward": rest_span["dwconv"] == per["apollo"] * fw["apollo"] > 0,
+        "VAD: 4 dwconv a forward": vad_span["dwconv"] == per["vad"] * vad_span["calls"] > 0,
+        "Paraformer: 12 dwconv a forward": asr_span["dwconv"] == per["paraformer"] * fw["paraformer"] > 0,
+        "per-forward counts": (per["separator"], per["apollo"], per["vad"], per["paraformer"])
+        == (2 * layers, 12, 4, 12),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"stream launches by span: {checks}, {spans}")
+    if not counter.apollo_shapes <= APOLLO_DW_SHAPES:
+        raise AssertionError(f"Apollo's convs ran at {sorted(counter.apollo_shapes)}; "
+                             f"check_dwconv holds {sorted(APOLLO_DW_SHAPES)}")
+    if not within_s1_limits(agree):
+        raise AssertionError(f"s1: the synchronous session against the async one: {agree}")
+    profile_call(lambda: stream_session(model, audio, enroll),
+                 "TargetDiarizationStream.infer_stream, s1 sync", top=12, spans=True)
+    model.async_flush = True
+    unrecord(model)
+
+    # s4 on the main path: four sessions at once, paced at real time; then
+    # the same with each session's flushes on its own thread of intake
+    inputs = [audio] + [dialogue(seconds, seed=s, overlap=True) for s in STREAM_SEEDS[1:]]
+    for phase, async_flush in (("stream_s4", True), ("stream_s4_sync", False)):
+        model.async_flush = async_flush
+        before = mb_stats(model)
+        runs, _, wall = concurrent_sessions(model, inputs, enroll)
+        emit(phase, path=f"bf16 kernels, {'async' if async_flush else 'sync'} flushes, "
+             "4 sessions paced at real time", wall_s=wall,
+             microbatch=mb_delta(mb_stats(model), before),
+             intake_ms_p50=pct_ms([x for r in runs for x in r["intake_s"]], 50),
+             intake_ms_p99=pct_ms([x for r in runs for x in r["intake_s"]], 99),
+             emission_ms_p50=pct_ms([x for r in runs for x in r["emission_s"]], 50),
+             emission_ms_p99=pct_ms([x for r in runs for x in r["emission_s"]], 99),
+             segments=[len(r["results"]) for r in runs])
+    model.async_flush = True
+    bf16_s1 = s1
+    del model, counter
+
+    # float32: kernels against plain on s1; s4 against each session alone
+    model32 = load_stream("float32", device=device)
+    rec = record_session(model32)
+    alone, alone_flushes = [], []
+    for x in inputs:
+        rec["flushes"].clear()
+        rec["decisions"].clear()
+        alone.append(stream_session(model32, x, enroll))
+        alone_flushes.append(list(rec["flushes"]))
+    rec["flushes"].clear()
+    rec["decisions"].clear()
+    with plain_kernels():
+        plain = stream_session(model32, audio, enroll)
+    plain_flushes, plain_decisions = list(rec["flushes"]), list(rec["decisions"])
+    f32 = session_agreement(alone[0], plain, alone_flushes[0], plain_flushes)
+    bf16 = session_agreement(bf16_s1, plain, s1_flushes, plain_flushes)
+    emit("stream_agreement", f32_kernels_vs_f32_plain=f32, bf16_kernels_vs_f32_plain=bf16,
+         bf16_r5_cosines=cosine_moves(s1_decisions, plain_decisions),
+         bf16_flushes=s1_flushes, f32_plain_flushes=plain_flushes,
+         bf16_results=bf16_s1["results"], f32_plain_results=plain["results"])
+    if not within_s1_limits(f32):
+        raise AssertionError(f"s1: float32 kernels vs float32 plain: {f32}")
+    # bf16 moves the analyzer's speech probabilities and cosines, so flush
+    # boundaries (and every later buffer) may move; a broken path shows as
+    # no results, a flush count off by a factor of 2, or texts unrelated
+    # to the float32 ones (a CER near 1)
+    if not (bf16["results"][0] > 0 and 0.5 <= bf16["flushes"][0] / bf16["flushes"][1] <= 2.0
+            and bf16["cer"] <= 0.6):
+        raise AssertionError(f"s1: bf16 kernels vs float32 plain: {bf16}")
+    unrecord(model32)
+    before = mb_stats(model32)
+    runs, flushes4, wall = concurrent_sessions(model32, inputs, enroll)
+    together = [session_agreement(r, a, f, af) for r, a, f, af in
+                zip(runs, alone, flushes4, alone_flushes)]
+    emit("stream_s4_f32", path="float32 kernels, 4 sessions paced at real time", wall_s=wall,
+         microbatch=mb_delta(mb_stats(model32), before), vs_alone=together,
+         intake_ms_p50=pct_ms([x for r in runs for x in r["intake_s"]], 50),
+         intake_ms_p99=pct_ms([x for r in runs for x in r["intake_s"]], 99),
+         emission_ms_p50=pct_ms([x for r in runs for x in r["emission_s"]], 50),
+         emission_ms_p99=pct_ms([x for r in runs for x in r["emission_s"]], 99))
+    if not all(within_s1_limits(a) for a in together):
+        raise AssertionError(f"s4: a session with three others against it alone: {together}")
+    coalesced = mb_delta(mb_stats(model32), before)
+    if not any(v["coalesced_dispatches"] for v in coalesced.values()):
+        raise AssertionError(f"s4: the MicroBatchers coalesced nothing: {coalesced}")
+    torch.cuda.synchronize()
+    return s1_launches
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -1619,7 +1983,8 @@ def main() -> None:
             "dwconv": check_dwconv(), "flash_group": check_flash_group()}
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr(),
                      "FusedFrontend": check_frontend(),
-                     "TargetDiarization.infer": check_infer()}
+                     "TargetDiarization.infer": check_infer(),
+                     "TargetDiarizationStream.infer_stream": check_stream()}
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

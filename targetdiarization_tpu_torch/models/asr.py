@@ -13,6 +13,7 @@ stacks of the JAX model are `nn.ModuleList`s here.
 
 from __future__ import annotations
 
+import bisect
 import math
 import os
 
@@ -24,6 +25,7 @@ from torch import nn
 from ..ops.dwconv import dw_conv1d
 from ..ops.kernels import prepare_kernels
 from ..ops.kernels.dwconv import prepare_taps
+from ..runtime import microbatch
 from ..runtime.buckets import BucketLadder, pad_to
 from ..runtime.precision import (dequantize_audio, promote_after, quantize_i16,
                                  resolve_compute_dtype)
@@ -237,7 +239,9 @@ def fire_frames_to_timestamps(fire_frames, total_frames: int) -> list:
 class ASREngine:
     """Bucketed Paraformer with the reference's result contract:
     [{"text": ..., "timestamp": [[start_ms, end_ms], ...]}]. One synchronous
-    forward per call (per sample rung for a batch); audio goes up as int16
+    forward per call (per sample rung for a batch; concurrent callers'
+    single utterances at one rung share one forward of ROW_LADDER rows,
+    `_run_mb`); audio goes up as int16
     and fbank + LFR + CMVN run on the device in float32. In a reduced
     compute type only `in_proj` computes in it (`promote_after`)."""
 
@@ -251,6 +255,27 @@ class ASREngine:
         self.tokenizer = tokenizer or CharTokenizer()
         self.cmvn = None if cmvn is None else tuple(
             torch.as_tensor(np.asarray(a, np.float32), device=self.device) for a in cmvn)
+        # concurrent sessions' single utterances at one sample rung coalesce
+        # into one batched forward (runtime/microbatch.py)
+        self._mb = microbatch.MicroBatcher(self._run_mb) if microbatch.enabled() else None
+
+    # row rungs of coalesced single-utterance forwards
+    ROW_LADDER = (1, 2, 4, 8)
+
+    def _run_mb(self, key: int, items: list) -> list:
+        """The batcher's callback: (int16 row, LFR frames) items at one
+        sample rung, padded to a row rung with rows of one frame, in one
+        forward; each item's decoded result."""
+        nb = self.ROW_LADDER[min(bisect.bisect_left(self.ROW_LADDER, len(items)),
+                                 len(self.ROW_LADDER) - 1)]
+        nb = max(nb, len(items))
+        batch = np.zeros((nb, key), np.int16)
+        ts = [1] * nb
+        for i, (row, t) in enumerate(items):
+            batch[i] = row
+            ts[i] = t
+        out = self._dispatch(batch, ts)
+        return [self._decode_row(out, i, t) for i, (_, t) in enumerate(items)]
 
     @classmethod
     def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
@@ -267,8 +292,8 @@ class ASREngine:
                    compute_dtype=compute_dtype)
 
     def forward_device(self, batch: np.ndarray, ts: list) -> dict:
-        """(rows, bucket) float audio and LFR frame counts -> the model's
-        output dict, on the device (call under torch.inference_mode)."""
+        """(rows, bucket) float or int16 audio and LFR frame counts -> the
+        model's output dict, on the device (call under torch.inference_mode)."""
         audio = torch.from_numpy(quantize_i16(batch)).to(self.device)
         feats = features.lfr(features.fbank(dequantize_audio(audio)), LFR_M, LFR_N)
         if self.cmvn is not None:
@@ -317,7 +342,10 @@ class ASREngine:
         if n_valid == 0:
             return [{"text": "", "timestamp": []}]
         t = -(-n_valid // LFR_N)
-        padded = pad_to(audio, _SAMPLE_LADDER.bucket(len(audio)))[None]
+        bucket = _SAMPLE_LADDER.bucket(len(audio))
+        padded = quantize_i16(pad_to(audio, bucket)[None])
+        if self._mb is not None:
+            return [self._mb.submit(bucket, (padded[0], t))]
         return [self._decode_row(self._dispatch(padded, [t]), 0, t)]
 
     def asr_detection_batch(self, audios: list, sr: int = SR) -> list:

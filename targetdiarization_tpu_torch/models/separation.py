@@ -10,6 +10,8 @@ pairs of the JAX model are a Python loop over an `nn.ModuleList`.
 
 from __future__ import annotations
 
+import bisect
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -22,8 +24,10 @@ from ..ops.kernels.ffconvm import TAPS, ffconvm, prepare_ffconvm, scale_norm
 from ..ops.kernels.flash import flash_gated
 from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample_poly_np
+from ..runtime import microbatch
 from ..runtime.buckets import BucketLadder
 from ..runtime.precision import promote_after, resolve_compute_dtype
+from ..runtime.trace import trace
 
 
 # ---------------- small pieces ----------------
@@ -345,7 +349,9 @@ class SeparationEngine:
     16 kHz processing in non-overlapping windows (10 s = 160 k samples);
     a clip that fits one window is padded only to the next rung of the
     32k/64k/96k/160k ladder. All windows of a call go through the model in
-    one synchronous batched forward. Outputs are loudest first.
+    one synchronous batched forward; concurrent callers' forwards at one
+    rung share one forward of ROW_LADDER rows (`_run_mb`). Outputs are
+    loudest first.
 
     In a reduced compute type only the encoder, `in_norm` and the
     bottleneck compute in it: the float32 position table promotes the
@@ -367,6 +373,13 @@ class SeparationEngine:
         prepare_kernels(self.model)
         self.sample_rate = model.sample_rate
         self.num_spks = model.num_spks
+        # concurrent sessions' forwards at one sample rung coalesce into one
+        # batched forward (runtime/microbatch.py)
+        self._mb = microbatch.MicroBatcher(self._run_mb) if microbatch.enabled() else None
+
+    # row rungs of coalesced forwards; a call with more rows than the top
+    # rung (a long clip's windows, already one batch) bypasses the batcher
+    ROW_LADDER = (1, 2, 4, 8, 16)
 
     @classmethod
     def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
@@ -375,13 +388,62 @@ class SeparationEngine:
 
         return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype)
 
-    def _dispatch(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    def _forward(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         """(rows, bucket) float32 audio -> (rows, spk, bucket) float32."""
         with torch.inference_mode():
             wav = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(
                 self.device).to(self.compute_dtype)
             lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
             return self.model(wav, lens).to(self.compute_dtype).float().cpu().numpy()
+
+    def _dispatch(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """(rows, bucket) -> (rows, spk, bucket): through the batcher, where
+        concurrent callers at the same rung share one forward, unless the
+        call has more rows than the top rung."""
+        if self._mb is None or batch.shape[0] > self.ROW_LADDER[-1]:
+            return self._forward(batch, lengths)
+        return self._mb.submit(batch.shape[1], (batch, lengths))
+
+    def _run_mb(self, key: int, items: list) -> list:
+        """The batcher's callback: consecutive items packed into groups of
+        at most the top rung's rows, each group padded to a rung with rows
+        of length 1 (always a rung, so a forward's row count is one of
+        five), one forward a group; each item gets its own rows back."""
+        top = self.ROW_LADDER[-1]
+        groups: list = [[]]
+        rows_in = 0
+        for idx, it in enumerate(items):
+            r = it[0].shape[0]
+            if rows_in + r > top and groups[-1]:
+                groups.append([])
+                rows_in = 0
+            groups[-1].append((idx, it))
+            rows_in += r
+        out: list = [None] * len(items)
+        for grp in groups:
+            rows = sum(b.shape[0] for _, (b, _) in grp)
+            nb = self.ROW_LADDER[min(bisect.bisect_left(self.ROW_LADDER, rows),
+                                     len(self.ROW_LADDER) - 1)]
+            batch, lengths = self._pad_rows(
+                np.concatenate([b for _, (b, _) in grp]),
+                np.concatenate([np.asarray(l, np.int64) for _, (_, l) in grp]), nb)
+            with trace("audio/separate_dispatch"):
+                est = self._forward(batch, lengths)
+            r = 0
+            for idx, (b, _) in grp:
+                out[idx] = est[r: r + b.shape[0]]
+                r += b.shape[0]
+        return out
+
+    @staticmethod
+    def _pad_rows(batch: np.ndarray, lengths: np.ndarray, rows: int):
+        """(batch, lengths) padded to `rows` rows of zeros with length 1 (the
+        masks leave a row's result to its own samples)."""
+        n = batch.shape[0]
+        if rows <= n:
+            return batch, lengths
+        batch = np.pad(batch, ((0, rows - n),) + ((0, 0),) * (batch.ndim - 1))
+        return batch, np.concatenate([lengths, np.ones(rows - n, lengths.dtype)])
 
     def _order_and_fit(self, streams: np.ndarray, sr: int, t_orig: int) -> np.ndarray:
         """Loudest stream first, back to the input rate and length."""

@@ -12,7 +12,6 @@ returns the entry point that the wrapper calls.
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
@@ -80,13 +79,23 @@ def ptxas_log(path: str) -> str:
     return path[:-len(".so")] + ".ptxas.txt"
 
 
-@functools.cache
+_LOCK = threading.RLock()  # `Entry._bound` holds it across `load_library`
+_LIBRARY: list = []
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernels' library, built first if the sources changed."""
-    path = library_path()
-    if not os.path.exists(path):
-        build(path)
-    return ctypes.CDLL(path)
+    """The kernels' library, built first if the sources changed. Threads
+    that come here together wait for one build: nvcc runs once in a
+    process."""
+    if _LIBRARY:
+        return _LIBRARY[0]
+    with _LOCK:
+        if not _LIBRARY:
+            path = library_path()
+            if not os.path.exists(path):
+                build(path)
+            _LIBRARY.append(ctypes.CDLL(path))
+    return _LIBRARY[0]
 
 
 SIGNATURES: dict[str, list] = {}
@@ -139,8 +148,12 @@ class Entry:
         blocks.block[:] = (*args, stream)
         return fn(blocks.address)
 
+    def _bound(self):
+        with _LOCK:  # one thread binds; the others find `_fn` set
+            return self._fn or self._bind()
+
     def __call__(self, device_index: int, *args) -> None:
-        fn = self._fn or self._bind()
+        fn = self._fn or self._bound()
         if device_index == self._device():
             err = self._call(fn, device_index, args)
         else:

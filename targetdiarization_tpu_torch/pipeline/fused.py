@@ -32,8 +32,10 @@ frames removed -> the streams back as int16.
 argmax -> CT-Transformer punctuation classes of those ids, when the two
 vocabularies are the same.
 
-The sharded analyze over a mesh of chips and `StreamChunkAnalyzer` are
-not ported.
+`StreamChunkAnalyzer.analyze_chunk`: the streaming flush decision's
+speech probabilities and speaker-change cosine in one pass (below).
+
+The sharded analyze over a mesh of chips is not ported.
 """
 
 from __future__ import annotations
@@ -232,6 +234,96 @@ class FusedFrontend:
 def _n_frames(n_valid: torch.Tensor) -> torch.Tensor:
     """`features.num_frames` of a tensor of sample counts."""
     return torch.where(n_valid < 400, 0, 1 + torch.div(n_valid - 400, 160, rounding_mode="floor"))
+
+
+class StreamChunkAnalyzer:
+    """One device pass per streaming chunk decision. The flush cascade
+    (`pipeline/streaming.py`) needs, per chunk, the VAD's speech
+    probabilities of the whole buffer and of the last chunk, and the cosine
+    between the embeddings of the buffer before the chunk and of the chunk
+    (speaker change). One pass: int16 upload of both -> fbank of each ->
+    VAD probabilities of each -> prefix-masked ERes2NetV2 embeddings of
+    "buffer minus chunk" (the buffer's first n_comb - n_chunk samples' frames,
+    less their mean) and of the chunk -> their cosine (0 where either is
+    zero). The buffer pads to a rung of `_LADDER` (its last 30 s kept), the
+    chunk to one of CHUNK_LADDER; concurrent sessions' decisions at the same
+    rungs coalesce into one pass of ROW_LADDER rows (padded rows are zeros
+    of length one, masked out of every row but their own)."""
+
+    CHUNK_SAMPLES = 16000  # 1 s, the clients' chunk
+    # a larger chunk takes a larger rung rather than being cut, so none of
+    # its samples count as the buffer before it
+    CHUNK_LADDER = BucketLadder((16000, 32000, 64000, 160000))
+    ROW_LADDER = BucketLadder((1, 2, 4, 8))
+
+    def __init__(self, vad, spk):
+        from ..runtime import microbatch
+
+        self.vad, self.spk = vad, spk
+        self.device = vad.device
+        self._mb = microbatch.MicroBatcher(self._run_batch) if microbatch.enabled() else None
+
+    def _embed(self, feats: torch.Tensor, nf: torch.Tensor) -> torch.Tensor:
+        m = (torch.arange(feats.shape[1], device=self.device)[None, :, None]
+             < nf[:, None, None]).float()
+        mean = (feats * m).sum(dim=1, keepdim=True) / torch.clamp_min(
+            m.sum(dim=1, keepdim=True), 1.0)
+        return self.spk.embed_feats((feats - mean) * m, nf)  # (nb, 192)
+
+    def _vad_probs(self, feats: torch.Tensor, nf: torch.Tensor) -> torch.Tensor:
+        logits = self.vad.model(feats.to(self.vad.compute_dtype), nf)
+        return torch.softmax(logits, dim=-1)[..., 1].float()
+
+    def _device(self, comb_i16, n_comb, chunk_i16, n_chunk) -> dict:
+        return self._heads(features.fbank(comb_i16.float() / 32768.0), n_comb,
+                           features.fbank(chunk_i16.float() / 32768.0), n_chunk)
+
+    def _heads(self, feats_c, n_comb, feats_k, n_chunk) -> dict:
+        """The pass after the fbanks: feats_c (nb, Tc, 80) of the buffers,
+        feats_k (nb, Tk, 80) of the chunks, and their sample counts."""
+        nf_chunk = _n_frames(n_chunk)
+        emb_prev = self._embed(feats_c, _n_frames(torch.clamp_min(n_comb - n_chunk, 0)))
+        emb_chunk = self._embed(feats_k, nf_chunk)
+        n_prev, n_chk = emb_prev.norm(dim=-1), emb_chunk.norm(dim=-1)
+        cos = torch.where((n_prev > 0) & (n_chk > 0),
+                          (emb_prev * emb_chunk).sum(-1) / torch.clamp_min(n_prev * n_chk, 1e-9),
+                          torch.zeros_like(n_prev))
+        return {"probs_comb": self._vad_probs(feats_c, _n_frames(n_comb)),
+                "probs_chunk": self._vad_probs(feats_k, nf_chunk), "similarity": cos}
+
+    def _run_batch(self, key: tuple, items: list) -> list:
+        """(buffer rung, chunk rung), [(buffer, chunk), ...] -> one result
+        an item, from one pass of a ROW_LADDER rung of rows."""
+        bucket, cs = key
+        nb = self.ROW_LADDER.bucket(len(items))
+        comb = np.zeros((nb, bucket), np.int16)
+        chk = np.zeros((nb, cs), np.int16)
+        n_comb = np.ones(nb, np.int64)
+        n_chunk = np.ones(nb, np.int64)
+        for i, (combined, chunk) in enumerate(items):
+            comb[i, : len(combined)] = quantize_i16(combined)
+            chk[i, : len(chunk)] = quantize_i16(chunk)
+            n_comb[i], n_chunk[i] = len(combined), len(chunk)
+        with trace("fused/stream_chunk"), torch.inference_mode(), exact_float32():
+            dev = self._device(*(torch.from_numpy(a).to(self.device)
+                                 for a in (comb, n_comb, chk, n_chunk)))
+            host = {k: v.cpu().numpy() for k, v in dev.items()}
+        return [{"probs_comb": host["probs_comb"][i, :features.num_frames(len(combined))],
+                 "probs_chunk": host["probs_chunk"][i, :features.num_frames(len(chunk))],
+                 "similarity": float(host["similarity"][i])}
+                for i, (combined, chunk) in enumerate(items)]
+
+    def analyze_chunk(self, combined: np.ndarray, chunk: np.ndarray) -> dict:
+        """{"probs_comb", "probs_chunk", "similarity"} of a buffer and its
+        last chunk, in one pass shared with the other sessions that call
+        at the same moment."""
+        chunk = np.asarray(chunk, np.float32)[-self.CHUNK_LADDER.rungs[-1]:]
+        combined = np.asarray(combined, np.float32)[-_LADDER.rungs[-1]:]
+        key = (_LADDER.bucket(max(len(combined), 1)),
+               self.CHUNK_LADDER.bucket(max(len(chunk), 1)))
+        if self._mb is not None:
+            return self._mb.submit(key, (combined, chunk))
+        return self._run_batch(key, [(combined, chunk)])[0]
 
 
 class FusedSeparation:

@@ -21,8 +21,14 @@ propagates: there is no per-engine fallback that hides it. The JAX
 package's branches stay: the windowed separation for long or many
 clips, the batched ASR when a clip was separated, the diarizer's own pass
 when there are no window embeddings. The pipeline needs the VAD and the
-speaker engines (the front end runs on them); `prewarm` and the
-per-engine `audio_preprocess` are not ported.
+speaker engines (the front end runs on them).
+
+`audio_preprocess` is the per-engine chain the streaming pipeline runs on
+each flushed buffer (mono, 16 kHz, loudness, the separator's louder stream
+or the denoiser, loudness); unlike the JAX package it lets an error
+through. `prewarm` loads the kernels' library and runs one pass of each
+device program an `n_samples`-long request reaches, so that the library,
+the cuBLAS and cuDNN handles and the tables exist before the first request.
 """
 
 from __future__ import annotations
@@ -392,6 +398,55 @@ class TargetDiarization:
             pieces.append(np.zeros(int((asr_result[-1]["timerange"][1] - cursor) * sr),
                                    np.float32))
         return result, (np.concatenate(pieces) if pieces else None)
+
+    # ---------------- preprocessing ----------------
+
+    def audio_preprocess(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                         stream_mode: bool = False, output_audio_only: bool = False):
+        """mono -> float32 -> 16 kHz -> loudness -> the separator's louder
+        stream (`stream_mode`) or the denoiser -> loudness; the audio, or
+        (audio, 16000)."""
+        audio_data = self.ap.int16_to_float32(self.ap.audio_to_mono(np.asarray(audio_data)))
+        audio_data, sampling_rate = self.ap.audio_resample(audio_data, sampling_rate, 16000)
+        audio_data = self.ap.audio_loudness_control(audio_data, sampling_rate)
+        if stream_mode:
+            audio_data = self.ap.separate_speaker(audio_data, sampling_rate)[0]
+        else:
+            audio_data = self.ap.denoise_vocal(audio_data, sampling_rate)
+        audio_data = self.ap.audio_loudness_control(audio_data, sampling_rate)
+        if output_audio_only:
+            return audio_data
+        return audio_data, sampling_rate
+
+    def prewarm(self, n_samples: int, target_samples: int = 0, n_spk: int = 2) -> float:
+        """Loads the kernels' library (built first if needed) and runs one
+        pass of the front end at `n_samples`, the enrollment at
+        `target_samples` (if given), `FusedASR` for `n_spk` speakers and
+        `FusedSeparation` on a 1 s clip, on silence. Returns the seconds
+        it took."""
+        import time
+
+        import torch
+
+        from .fused import _LADDER
+
+        t0 = time.perf_counter()
+        if self.fused.device.type == "cuda":
+            from ..ops.kernels._build import load_library
+
+            load_library()
+        n = max(int(n_samples), 1600)
+        self.fused.analyze(np.zeros(n, np.float32))
+        if target_samples:
+            self.fused.enroll(np.zeros(max(int(target_samples), 1600), np.float32))
+        if self.fused_asr is not None:
+            bucket = _LADDER.bucket(min(n, _LADDER.rungs[-1]))
+            self.fused_asr.transcribe_masked(
+                torch.zeros(bucket, dtype=torch.int16, device=self.fused_asr.device), bucket,
+                [[(0.0, 0.5)]] * n_spk)
+        if self.ap.separator is not None:
+            self.tasr._fused_separation().separate_score([np.zeros(16000, np.float32)])
+        return time.perf_counter() - t0
 
     # ---------------- main entry ----------------
 

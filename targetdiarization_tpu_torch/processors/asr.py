@@ -1,12 +1,15 @@
-"""ASRProcessor: VAD, Paraformer ASR and punctuation.
+"""ASRProcessor: VAD, Paraformer ASR, punctuation and the segmentation
+diarizer.
 
-Counterpart of the VAD, local-Paraformer and punctuation parts of
-targetdiarization_tpu/processors/asr.py::ASRProcessor. Each engine is
-loaded from the checkpoint path it is given, or the constructor raises;
+Counterpart of the VAD, local-Paraformer, punctuation and diarization
+parts of targetdiarization_tpu/processors/asr.py::ASRProcessor. Each engine
+is loaded from the checkpoint path it is given, or the constructor raises;
 an empty path leaves the engine out: `vad_detection` then returns the
-whole clip, `asr_detection` an empty result, and `punctuation_restore`
-the text unchanged. Unlike the JAX package, no path means no VAD: there
-is no random-weight engine.
+whole clip, `asr_detection` an empty result, `punctuation_restore` the
+text unchanged and `speaker_diarization` no segments. Unlike the JAX
+package, no path means no VAD: there is no random-weight engine. The cloud
+engines are not ported: `asr_detection` with one of API_ENGINES raises.
+The calls run inside the JAX package's trace spans (`asr/...`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from ..models.asr import ASREngine
 from ..models.punctuation import PunctuationEngine
 from ..models.vad import VADEngine
+from ..runtime.trace import trace
 
 
 def _load(engine_cls, path: str, what: str, device, compute_dtype):
@@ -30,15 +34,22 @@ def _load(engine_cls, path: str, what: str, device, compute_dtype):
 
 
 class ASRProcessor:
+    API_ENGINES = ("tencent_api", "xunfei_api", "gemini_api", "jzx_api")
+
     def __init__(self, vad_model: str = "", asr_model: str = "", asr_engine: str = "paraformer",
-                 punc_model: str = "", device: str | torch.device = "cuda",
-                 compute_dtype: str | None = None):
+                 punc_model: str = "", diarization_model: str = "",
+                 device: str | torch.device = "cuda", compute_dtype: str | None = None):
         if asr_engine != "paraformer":
             raise NotImplementedError(f"ASR engine {asr_engine!r} is not ported; "
                                       "the port runs 'paraformer'")
+        self.asr_engine = asr_engine
         self.vad = _load(VADEngine, vad_model, "VAD", device, compute_dtype)
         self.asr = _load(ASREngine, asr_model, "ASR", device, compute_dtype)
         self.punc = _load(PunctuationEngine, punc_model, "punctuation", device, compute_dtype)
+        from ..models.diarization import SegmentationEngine
+
+        self.diarizer = _load(SegmentationEngine, diarization_model, "diarization", device,
+                              compute_dtype)
 
     # ---------------- VAD ----------------
 
@@ -56,14 +67,16 @@ class ASRProcessor:
         over = {"min_clip_sec": min_clip_sec, "max_clip_sec": max_clip_sec}
         if max_end_silence_time is not None:
             over["max_end_silence_time"] = max_end_silence_time
-        return self.vad.vad_detection(audio_data, sr=sampling_rate, **over)
+        with trace("asr/vad_detection"):
+            return self.vad.vad_detection(audio_data, sr=sampling_rate, **over)
 
     def vad_detection_batch(self, clips: list, sampling_rate: int = 16000,
                             **vad_kwargs) -> list:
         """vad_detection for several clips in one forward."""
         if self.vad is None:
             return [[[0.0, len(c) / sampling_rate]] for c in clips]
-        return self.vad.vad_detection_batch(clips, sr=sampling_rate, **vad_kwargs)
+        with trace("asr/vad_detection"):
+            return self.vad.vad_detection_batch(clips, sr=sampling_rate, **vad_kwargs)
 
     def asr_vad_split(self, audio_data: np.ndarray, sampling_rate: int = 16000,
                       **vad_kwargs) -> list:
@@ -79,25 +92,32 @@ class ASRProcessor:
         return self.asr is not None
 
     def asr_detection(self, audio_data: np.ndarray, sampling_rate: int = 16000,
-                      no_punc: bool = False) -> list:
-        """[{"text", "timestamp"}]; the text punctuated unless no_punc."""
+                      asr_engine: str | None = None, prompt: str = "",
+                      no_punc: bool = False, **_) -> list:
+        """[{"text", "timestamp"}]; the text punctuated unless no_punc. A
+        cloud engine (`asr_engine` in API_ENGINES) raises; the local
+        Paraformer ignores `prompt`, as in the JAX package."""
+        if (asr_engine or self.asr_engine) in self.API_ENGINES:
+            raise NotImplementedError(f"cloud ASR engine {asr_engine!r} is not ported")
         if self.asr is None:
             return [{"text": "", "timestamp": []}]
-        res = self.asr.asr_detection(audio_data, sr=sampling_rate)
+        with trace("asr/asr_detection"):
+            res = self.asr.asr_detection(audio_data, sr=sampling_rate)
         if not no_punc and self.punc is not None and res and res[0]["text"]:
-            res[0]["text"] = self.punc.punctuation_restore(res[0]["text"])
+            res[0]["text"] = self.punctuation_restore(res[0]["text"])
         return res
 
     def asr_detection_batch(self, audios: list, sampling_rate: int = 16000,
-                            no_punc: bool = False) -> list:
+                            no_punc: bool = False, **_) -> list:
         """asr_detection over several utterances, one forward per sample rung."""
         if self.asr is None:
             return [{"text": "", "timestamp": []} for _ in audios]
-        results = self.asr.asr_detection_batch(audios, sr=sampling_rate)
+        with trace("asr/asr_detection"):
+            results = self.asr.asr_detection_batch(audios, sr=sampling_rate)
         if not no_punc and self.punc is not None:
             for r in results:
                 if r["text"]:
-                    r["text"] = self.punc.punctuation_restore(r["text"])
+                    r["text"] = self.punctuation_restore(r["text"])
         return results
 
     def detect_language(self, text: str = "") -> str:
@@ -117,7 +137,8 @@ class ASRProcessor:
     def punctuation_restore(self, text: str) -> str:
         if self.punc is None or not text:
             return text
-        return self.punc.punctuation_restore(text)
+        with trace("asr/punctuation"):
+            return self.punc.punctuation_restore(text)
 
     def punctuation_restore_batch(self, texts: list) -> list:
         """punctuation_restore over many texts in one forward."""
@@ -126,5 +147,17 @@ class ASRProcessor:
         todo = [t for t in texts if t]
         if not todo:
             return list(texts)
-        done = iter(self.punc.punctuation_restore_batch(todo))
+        with trace("asr/punctuation"):
+            done = iter(self.punc.punctuation_restore_batch(todo))
         return [next(done) if t else t for t in texts]
+
+    # ---------------- diarization ----------------
+
+    def speaker_diarization(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> dict:
+        """{"text": [[start, end, spk], ...]} by start, from the segmentation
+        diarizer; no segments without one."""
+        if self.diarizer is None:
+            return {"text": []}
+        sd = self.diarizer.diarize(audio_data, sr=sampling_rate)
+        return {"text": sorted(([s, e, int(spk)] for spk, ranges in sd.items()
+                                for s, e in ranges), key=lambda x: x[0])}

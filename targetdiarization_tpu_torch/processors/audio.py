@@ -27,6 +27,7 @@ from ..models.separation import SeparationEngine
 from ..ops import audio as A
 from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample
+from ..runtime.trace import trace
 from ..utils import audio_io
 
 _UNPORTED = {"enhance_audio"}
@@ -105,6 +106,13 @@ class AudioProcessor:
         e = min(len(audio_data), int(end_time * sampling_rate))
         return np.asarray(audio_data[s:e])
 
+    @staticmethod
+    def combine_audio_chunks(chunks: list) -> np.ndarray:
+        """The chunks one after the other (float32 zeros of length 0 for none)."""
+        if not chunks:
+            return np.zeros(0, np.float32)
+        return np.concatenate([np.asarray(c) for c in chunks], axis=0)
+
     # ---------------- level ----------------
 
     def meter_loudness(self, audio_data: np.ndarray, sampling_rate: int) -> float:
@@ -162,19 +170,21 @@ class AudioProcessor:
     def separate_speaker(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> list:
         """[spk1, spk2] loudest first; with no separator, the input twice."""
         self._log("Running module: separate_speaker")
-        if self.separator is None:
-            a = np.asarray(audio_data, np.float32)
-            return [a, a.copy()]
-        out = self.separator.separate(audio_data, sr=sampling_rate)
-        return [out[0], out[1]]
+        with trace("audio/separate_speaker"):
+            if self.separator is None:
+                a = np.asarray(audio_data, np.float32)
+                return [a, a.copy()]
+            out = self.separator.separate(audio_data, sr=sampling_rate)
+            return [out[0], out[1]]
 
     def restore_audio(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> np.ndarray:
         """Apollo restoration (`RestorationEngine.restore`); with no restorer,
         the input as float32."""
         self._log("Running module: restore_audio")
-        if self.restorer is None:
-            return np.asarray(audio_data, np.float32)
-        return self.restorer.restore(audio_data, sr=sampling_rate)
+        with trace("audio/restore_audio"):
+            if self.restorer is None:
+                return np.asarray(audio_data, np.float32)
+            return self.restorer.restore(audio_data, sr=sampling_rate)
 
     def run_modules(self, audio_data: np.ndarray, sampling_rate: int,
                     modules: list) -> np.ndarray:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -49,17 +50,34 @@ def promote_after(model: nn.Module, first: nn.Module | Sequence[nn.Module],
     return model
 
 
+_TF32_LOCK = threading.Lock()
+_TF32_DEPTH = 0  # blocks open in any thread
+_TF32_SAVED = (False, False)
+
+
 @contextlib.contextmanager
 def exact_float32():
     """Float32 products and convolutions in float32, not TF32, inside the
-    block (the JAX package's float32 and `Precision.HIGHEST`); the
-    process's settings come back after it."""
-    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    block (the JAX package's float32 and `Precision.HIGHEST`). The flags
+    are process-wide, so the blocks of all threads count as one: the first
+    to open saves the process's settings and clears TF32, the last to
+    close puts them back. No thread can restore TF32 while another is
+    still inside its block."""
+    global _TF32_DEPTH, _TF32_SAVED
+    with _TF32_LOCK:
+        if _TF32_DEPTH == 0:
+            _TF32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        _TF32_DEPTH += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+        with _TF32_LOCK:
+            _TF32_DEPTH -= 1
+            if _TF32_DEPTH == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _TF32_SAVED
 
 
 def quantize_i16(x) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Host-side WAV reading.
+"""Host-side WAV reading and writing.
 
 The port's copy of the PCM WAV branch of targetdiarization_tpu/utils/
 audio_io.py: 8-, 16-, 24- and 32-bit integer PCM from a path, bytes or a
@@ -59,3 +59,15 @@ def read_audio(source, sample_rate: int | None = None) -> tuple[np.ndarray, int]
 
         audio, sr = resample_poly_np(audio, sample_rate, sr), sample_rate
     return audio, sr
+
+
+def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
+    """Mono float audio in [-1, 1] as 16-bit PCM WAV (clipped, rounded)."""
+    import wave
+
+    pcm = np.clip(np.round(np.asarray(audio, np.float32).ravel() * 32767.0), -32768, 32767)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(int(sample_rate))
+        w.writeframes(pcm.astype("<i2").tobytes())

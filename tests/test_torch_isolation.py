@@ -1,9 +1,11 @@
 """The port runs where JAX does not exist.
 
-The machine with the card has PyTorch and no jax, flax or scikit-learn, so
-the port and chip_smoke.py must import and run with jax, flax, sklearn and
-the JAX package unimportable: the separator, the ASR stage, the fused front
-end and `TargetDiarization.infer` on the shipped checkpoints.
+The machine with the card has PyTorch and no jax, flax, scikit-learn or
+aiohttp, so the port and chip_smoke.py must import and run with jax, flax,
+sklearn and the JAX package unimportable: the separator, the ASR stage, the
+fused front end, `TargetDiarization.infer`, and the streaming and serving
+entry points (`build_model`, `infer_stream`, the server app, the CLI) on
+the shipped checkpoints; without aiohttp too, all but the server app.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -129,6 +131,125 @@ def test_target_diarization_infer_runs_without_jax_or_sklearn():
                           text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "INFER_ISOLATED_OK" in proc.stdout
+
+
+_BLOCK = textwrap.dedent("""
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "sklearn", "targetdiarization_tpu") + EXTRA
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)  # beside the other test workers' threads
+""")
+
+_LEAKS = textwrap.dedent("""
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+""")
+
+_BLOCKED_SERVE = textwrap.dedent("""
+    import asyncio, base64
+    from aiohttp.test_utils import TestClient, TestServer
+    from chip_smoke import dialogue
+    from targetdiarization_tpu_torch.runtime.config import env_config
+    from targetdiarization_tpu_torch.runtime.microbatch import MicroBatcher, enabled
+    from targetdiarization_tpu_torch.serve.server import build_model, create_app
+    assert env_config().device == "cuda" and enabled()
+    assert MicroBatcher(lambda key, items: [2 * x for x in items]).submit("k", 4) == 8
+    model = build_model(device="cpu")
+    pcm = np.round(dialogue(2.0, seed=3, overlap=False) * 32767).astype(np.int16)
+
+    async def run():
+        async with TestClient(TestServer(create_app(model))) as client:
+            health = await (await client.get("/health")).json()
+            page = await (await client.get("/target-diarization")).text()
+            ws = await client.ws_connect("/diarization/stream")
+            await ws.send_json({"type": "config", "data": {}})
+            ack = await ws.receive_json()
+            for i in range(0, len(pcm), 16000):
+                await ws.send_json({"type": "audio_chunk",
+                                    "data": base64.b64encode(pcm[i: i + 16000].tobytes()).decode()})
+            await ws.send_json({"type": "audio_end"})
+            msgs = []
+            while not msgs or msgs[-1]["type"] not in ("status", "error"):
+                msgs.append(await ws.receive_json())
+            await ws.close()
+            return health, page, ack, msgs
+
+    health, page, ack, msgs = asyncio.run(run())
+    assert health["model_loaded"] is True and "diarization/stream" in page
+    assert ack["type"] == "config_ack" and msgs[-1]["message"] == "completed", msgs
+""")
+
+
+def _run_blocked(body: str, extra: tuple = ()) -> subprocess.CompletedProcess:
+    script = _BLOCK.replace("EXTRA", repr(tuple(extra))) + body + _LEAKS + "print('BLOCKED_OK')\n"
+    return subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=900, env={**os.environ, "PYTHONPATH": REPO})
+
+
+def test_server_and_stream_run_without_jax():
+    """`build_model` on the CPU, the config and the batcher, and the app
+    through aiohttp's test client: /health, the page, one WS session."""
+    proc = _run_blocked(_BLOCKED_SERVE)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_CLI = textwrap.dedent("""
+    import contextlib, io, json, os, tempfile
+    from chip_smoke import dialogue, enrollment
+    from targetdiarization_tpu_torch import __main__ as cli
+    from targetdiarization_tpu_torch.models.separation import MossFormer2, SeparationEngine
+    from targetdiarization_tpu_torch.serve import server
+    from targetdiarization_tpu_torch.utils.audio_io import read_wav, write_wav
+    assert not server.HAS_AIOHTTP
+    try:
+        server.create_app(None)
+        raise AssertionError("create_app ran without aiohttp")
+    except RuntimeError as e:
+        assert "aiohttp" in str(e)
+    model = server.build_model(device="cpu")
+    assert len(model.ap.separator.model.mask_net.layers) == 12
+    # a small separator: the CPU runs the 256/12 one too slowly for a test
+    model.ap.separator = SeparationEngine(MossFormer2(dim=64, enc_channels=64, num_blocks=2,
+                                                      group_size=32, qk_dim=32, fsmn_inner=64
+                                                      ).eval(), device="cpu")
+    audio = dialogue(3.0, seed=13, overlap=True)
+    out = list(model.infer_stream((audio[i: i + 16000] for i in range(0, len(audio), 16000)),
+                                  target_file=enrollment(2.0, seed=9)))
+    assert all(spk == "1" for spk, res, _ in out), out
+    cli._build = lambda args: model  # the CLI's own plumbing on the model just built
+    tmp = tempfile.mkdtemp()
+    wav, res, tgt = (os.path.join(tmp, n) for n in ("in.wav", "out.json", "target.wav"))
+    write_wav(wav, dialogue(2.0, seed=5, overlap=False), 16000)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cpu", "stream", wav])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    assert all({"target_speaker_id", "speaker", "text"} <= set(x) for x in lines), lines
+    cli.main(["--device", "cpu", "infer", wav, "--single", "--output-json", res,
+              "--output-audio", tgt])
+    with open(res, encoding="utf-8") as f:
+        assert set(json.load(f)) == {"target_speaker_id", "results"}
+    assert read_wav(tgt)[1] == 16000
+""")
+
+
+def test_cli_and_stream_run_without_jax_or_aiohttp():
+    """Without aiohttp `create_app` raises, and `build_model`,
+    `infer_stream` and the CLI's `stream` and `infer` run."""
+    proc = _run_blocked(_BLOCKED_CLI, extra=("aiohttp",))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
 
 
 def test_asr_processor_runs_without_jax():
