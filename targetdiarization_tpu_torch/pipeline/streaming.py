@@ -329,18 +329,13 @@ class TargetDiarizationStream(TargetDiarization):
         if not state.vad_buffer:
             return True
         combined = np.concatenate(state.vad_buffer)
-        vad = self.tasr.asrp.vad
         similarity = None
-        if self._stream_analyzer is not None:
+        if self._stream_analyzer is not None:  # built whenever there is a VAD
             fr = self._stream_analyzer.analyze_chunk(combined, state.vad_buffer[-1])
             buffer_vad = segment_probs(fr["probs_comb"], VADConfig(max_end_silence_time=0.1),
                                        fps=100.0)
             chunk_vad = segment_probs(fr["probs_chunk"], VADConfig(), fps=100.0)
             similarity = fr["similarity"]
-        elif vad is not None:
-            probs = vad.frame_probs_batch([combined, state.vad_buffer[-1]])
-            buffer_vad = segment_probs(probs[0], VADConfig(max_end_silence_time=0.1), fps=100.0)
-            chunk_vad = segment_probs(probs[1], VADConfig(), fps=100.0)
         else:
             buffer_vad = [[0.0, len(combined) / 16000]]
             chunk_vad = [[0.0, 1.0]]

@@ -2,14 +2,18 @@
 constructor keywords, read once at start-up.
 
 Counterpart of targetdiarization_tpu/runtime/config.py, with the same
-field and environment names. Only `device` differs: "cuda" (the card) or
-"cpu".
+field and environment names, holding only the fields that
+`serve/server.py::build_model` reads. Left out: `compute_dtype` (the
+engines read TD_COMPUTE_DTYPE), the fields of stages the port lacks
+(enhancement, emotion, the diarization and embedding-name presets) and
+those the JAX server never passes on (`long_audio_threshold`,
+`chunk_duration`, `extra`). `device` is "cuda" (the card) or "cpu".
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, fields
 
 
 def _load_dotenv(path: str = ".env") -> dict:
@@ -38,31 +42,26 @@ def _env(name, cast, default):
 
 @dataclass
 class FrameworkConfig:
-    """All start-up knobs, under the JAX package's field and env names."""
+    """The start-up knobs `build_model` reads, under the JAX package's field
+    and env names."""
 
     # Infra
     verbose_log: bool = False
     device: str = "cuda"  # "cuda" | "cpu"
-    compute_dtype: str = "bfloat16"
 
     # Model checkpoint dirs (empty = the stage is left out)
     vad_model: str = ""
     embedding_model: str = ""
-    embedding_model_name: str = "eres2netv2_large"
-    diarization_model: str = ""
     segmentation_model: str = ""  # overlap detection
     denoise_model: str = ""
     separation_model: str = ""
     restoration_model: str = ""
-    enhancement_model: str = ""  # Resemble-Enhance slot (FlowEnhancer)
     asr_model: str = ""
     asr_engine: str = "paraformer"
     punc_model: str = ""
-    emotion_model: str = ""
 
     # Offline pipeline thresholds
     target_similarity_threshold: float = 0.0
-    long_audio_threshold: float = 30.0
     pyannote_clustering_threshold: float = 0.0
 
     # Streaming knobs
@@ -71,13 +70,10 @@ class FrameworkConfig:
     vad_min_silence: float = 0.3
     similarity_threshold: float = 0.4
     loudness_diff_threshold: float = 12.0
-    chunk_duration: float = 1.0
     use_asr_prompt: bool = False
 
     # Quality preset 1/2/3
     quality: int = 2
-
-    extra: dict = field(default_factory=dict)
 
 
 def env_config(dotenv_path: str = ".env") -> FrameworkConfig:
@@ -88,12 +84,7 @@ def env_config(dotenv_path: str = ".env") -> FrameworkConfig:
         os.environ.setdefault(k, v)
 
     cfg = FrameworkConfig()
-    casts = {bool: bool, int: int, float: float, str: str}
     for f in fields(FrameworkConfig):
-        if f.name == "extra":
-            continue
-        cast = casts.get(f.type if isinstance(f.type, type) else type(getattr(cfg, f.name)))
-        if cast is None:
-            cast = type(getattr(cfg, f.name))
-        setattr(cfg, f.name, _env(f.name.upper(), cast, getattr(cfg, f.name)))
+        default = getattr(cfg, f.name)
+        setattr(cfg, f.name, _env(f.name.upper(), type(default), default))
     return cfg

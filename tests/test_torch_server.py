@@ -3,7 +3,7 @@ aiohttp's test client on the CPU.
 
 Both servers serve their package's `build_model()` on the CPU (the shipped
 checkpoints, float32) with one small random separator in place of the
-256/12 one (`torch_stream_systems.py`). The inputs are synthesized
+256/12 one (`test_torch_stream_systems.py`). The inputs are synthesized
 two-voice WAV bytes made from numpy seeds. The responses must have the
 same schema and values: speakers, speaker types, types and scores equal,
 timeranges within 10 ms, statistics within 0.02 s, the same texts except
@@ -31,7 +31,7 @@ from chip_smoke import cer, dialogue, enrollment, strip_punct
 from targetdiarization_tpu.runtime.config import env_config as jax_env_config
 from targetdiarization_tpu.serve import server as jserver
 from targetdiarization_tpu_torch.serve import server as tserver
-from torch_stream_systems import stream_systems
+from test_torch_stream_systems import stream_systems
 
 SR = 16000
 
@@ -300,10 +300,25 @@ def test_config_matches_jax(monkeypatch, tmp_path):
     monkeypatch.delenv("IS_VAD_BUFFER", raising=False)
     ours, theirs = env_config(str(env)), jax_env_config(str(env))
     assert (ours.max_buffer_duration, ours.is_vad_buffer, ours.quality) == (12.5, False, 3)
-    for name in vars(theirs):
+    for name in vars(ours):
         if name != "device":
             assert getattr(ours, name) == getattr(theirs, name), name
     assert ours.device == "cuda"
+    # only what build_model reads: a knob the port would ignore is absent
+    assert not {"compute_dtype", "long_audio_threshold", "chunk_duration", "extra",
+                "enhancement_model", "emotion_model"} & set(vars(ours))
+
+
+def test_build_model_reads_every_config_field():
+    """Every field of the port's FrameworkConfig reaches the system:
+    `build_model` reads each one."""
+    import inspect
+    from dataclasses import fields
+
+    from targetdiarization_tpu_torch.runtime.config import FrameworkConfig
+
+    src = inspect.getsource(tserver.build_model)
+    assert [f.name for f in fields(FrameworkConfig) if f"cfg.{f.name}" not in src] == []
 
 
 def test_prewarm_runs_one_pass_of_each_program(models, monkeypatch):

@@ -95,32 +95,81 @@ def test_eres2netv2_small_matches_jax(small, t, lengths):
     assert _rel(got, want) <= TOL
 
 
+def _forward(jm):
+    return jax.jit(lambda p, f, n: jm.apply(p, f, n, train=False))
+
+
 @pytest.fixture(scope="module")
 def small_f64(small):
-    import copy
+    """The witness, independent of the port: the JAX model in float64 (x64
+    on, params and input in float64)."""
+    jm, jp, _ = small
+    with jax.enable_x64(True):
+        return _forward(jm), jax.tree_util.tree_map(
+            lambda p: jnp.asarray(np.asarray(p, np.float64)), jp)
 
-    return copy.deepcopy(small[2]).double()
 
-
-@pytest.mark.parametrize("seed", range(50))
-def test_eres2netv2_one_frame_row_against_float64(small, small_f64, seed):
-    """The 1-frame row of (37, 1) frames against the same network in float64
-    (the port's modules in double), relative to the largest float64 output.
-    The port's float32 row is within 2e-6 (about 4e-7 over these seeds);
-    the JAX package's is 1e-5 to 9e-5 away (one whole-suite run of the test
-    above drew an input at 1.8e-4), so on this row the JAX package, not the
-    port, carries the float32 error, and the port is the nearer one on every
-    seed. `tests/measure_eres2netv2_float64.py` prints the distribution."""
+def _one_frame_row_errors(small, small_f64, fwd, seed):
+    """(port, JAX) float32 errors of the 1-frame row of (37, 1) frames
+    against the JAX model in float64, relative to the largest float64
+    output; `fwd` is the jitted JAX float32 forward."""
     jm, jp, tm = small
     feats = np.random.default_rng(seed).standard_normal((2, 37, 80)).astype(np.float32)
     lengths = np.array([37, 1])
-    got, want = _run_both(jm, jp, tm, feats, lengths)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(fwd(jp, jnp.asarray(feats), jnp.asarray(lengths)))
     with torch.inference_mode():
-        ref = small_f64(_t(feats).double(), _t(lengths)).numpy()
+        got = tm(_t(feats), _t(lengths)).numpy()
+    f64, p64 = small_f64
+    with jax.enable_x64(True):
+        ref = f64(p64, jnp.asarray(feats, jnp.float64), jnp.asarray(lengths))
+        assert ref.dtype == jnp.float64
+        ref = np.asarray(ref)
     scale = np.abs(ref).max()
-    port, jax_err = (float(np.abs(x[1] - ref[1]).max() / scale) for x in (got, want))
+    return tuple(float(np.abs(x[1] - ref[1]).max() / scale) for x in (got, want))
+
+
+@pytest.fixture(scope="module")
+def small_fwd(small):
+    return _forward(small[0])
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_eres2netv2_one_frame_row_against_float64(small, small_f64, small_fwd, seed):
+    """The 1-frame row against the JAX model in float64. Over these 50
+    seeds the port's float32 row is at most 7.9e-7 from it (mean 4.1e-7);
+    the JAX package's float32 row 7.0e-6 to 8.6e-5 (mean 3.1e-5), and one
+    whole-suite draw of the test above reached 1.8e-4. So on this row the
+    JAX package carries the float32 error; why is the next test."""
+    port, jax_err = _one_frame_row_errors(small, small_f64, small_fwd, seed)
     assert port <= 2e-6
     assert jax_err <= 2e-4 and port < jax_err
+
+
+def test_eres2netv2_one_frame_error_is_flax_fast_variance(small, small_f64, small_fwd,
+                                                          monkeypatch):
+    """The cause: AFF's `gate_norm` (flax GroupNorm, one channel a group)
+    takes its variance as E[x^2] - E[x]^2 (`use_fast_variance`). The 1-frame
+    row's maps are near constant (the rest is masked), so that difference
+    cancels in float32; torch's GroupNorm takes it about the mean. With the
+    two-pass variance the JAX float32 row comes about ten times nearer to
+    float64 (over 50 seeds: max 8.3e-6, mean 2.0e-6, against 8.6e-5 and
+    3.1e-5), and its intermediates part from float64 first in stage0's
+    block (the stem stays within 2e-7)."""
+    import functools
+
+    import flax.linen as fnn
+
+    seeds = range(6)
+    fast = [_one_frame_row_errors(small, small_f64, small_fwd, s) for s in seeds]
+    monkeypatch.setattr(jspk.nn, "GroupNorm",
+                        functools.partial(fnn.GroupNorm, use_fast_variance=False))
+    fwd = _forward(small[0])  # traced anew with the two-pass variance
+    two_pass = [_one_frame_row_errors(small, small_f64, fwd, s) for s in seeds]
+    mean_fast, mean_two = (float(np.mean([j for _, j in r])) for r in (fast, two_pass))
+    assert mean_two * 5 < mean_fast, (fast, two_pass)
+    assert max(j for _, j in two_pass) < 2e-5, two_pass
+    assert [p for p, _ in fast] == [p for p, _ in two_pass]  # the port is untouched
 
 
 def test_eres2netv2_shipped_matches_jax(shipped, rng):

@@ -7,7 +7,7 @@ strategies a flush runs are in `test_torch_target_asr.py`.)
 Inputs are synthesized voices (`chip_smoke.dialogue`, `enrollment`) from
 numpy seeds; both packages' systems are their servers' `build_model()` on
 the CPU (the shipped checkpoints) with one small random separator in
-place of the 256/12 one (`torch_stream_systems.py`), float32, the JAX
+place of the 256/12 one (`test_torch_stream_systems.py`), float32, the JAX
 side at full matmul precision.
 
 Limits, and why:
@@ -30,7 +30,7 @@ import torch
 from chip_smoke import dialogue, enrollment
 from targetdiarization_tpu.pipeline.streaming import StreamState as JaxStreamState
 from targetdiarization_tpu_torch.pipeline.streaming import StreamState
-from torch_stream_systems import stream_systems
+from test_torch_stream_systems import stream_systems
 
 SR = 16000
 
@@ -49,7 +49,7 @@ def _two_threads():
 @pytest.fixture(scope="module")
 def systems():
     """Both packages' streaming systems as their servers build them on the
-    CPU, with one small random separator (`torch_stream_systems.py`)."""
+    CPU, with one small random separator (`test_torch_stream_systems.py`)."""
     ours, theirs = stream_systems()
     assert theirs._stream_analyzer is not None  # its constructor took no error branch
     return ours, theirs
@@ -141,16 +141,20 @@ def test_r5_speaker_change(systems, pkg, monkeypatch, similarity, flush):
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-def test_flush_rules_without_the_analyzer(systems, pkg, monkeypatch):
-    """Without the analyzer the VAD's batch and the speaker engine's
-    batch drive the cascade (here R5)."""
+@pytest.mark.parametrize("flush", [True, False])
+def test_flush_rules_without_a_vad(systems, pkg, monkeypatch, flush):
+    """A configuration without a VAD checkpoint has no analyzer: the whole
+    buffer counts as speech, so R4 never fires and the speaker engine's
+    batch decides R5 (orthogonal embeddings flush, equal ones wait)."""
     model = _pick(systems, pkg)
+    monkeypatch.setattr(model.tasr.asrp, "vad", None)
     monkeypatch.setattr(model, "_stream_analyzer", None)
-    monkeypatch.setattr(model.tasr.asrp.vad, "frame_probs_batch",
-                        lambda clips, sr=16000: [np.ones(len(c) // 160, np.float32) for c in clips])
+    e = np.eye(2, 192, dtype=np.float32)
     monkeypatch.setattr(model.tasr.spk, "embed_batch",
-                        lambda clips, sr=16000: np.eye(2, 192, dtype=np.float32))
-    assert model.should_wait_for_next_chunk(_state(pkg, [np.full(SR, 0.1)] * 2)) is False
+                        lambda clips, sr=16000: e if flush else e[[0, 0]])
+    state = _state(pkg, [np.full(SR, 0.1)] * 2)
+    assert model.should_wait_for_next_chunk(state) is (not flush)
+    assert model.should_wait_for_next_chunk(state, is_silence=True) is True  # R2: no gap
 
 
 @pytest.mark.parametrize("pkg", PKGS)

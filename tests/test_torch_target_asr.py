@@ -9,7 +9,7 @@ ported beside them (`target_speaker_asr`, `target_speaker_separate_asr`,
 Inputs are synthesized voices from numpy seeds; the models are the shipped
 `vad-`, `spk-`, `asr-`, `rest-` and `seg-bootstrap` and a small random
 separator given to both packages through `runtime/convert.py`
-(`torch_stream_systems.py`); float32,
+(`test_torch_stream_systems.py`); float32,
 the JAX side at full matmul precision.
 
 Limits, and why:
@@ -48,7 +48,7 @@ from targetdiarization_tpu_torch.pipeline import fused as tfused
 from targetdiarization_tpu_torch.pipeline.target_asr import TargetASR
 from targetdiarization_tpu_torch.processors.asr import ASRProcessor
 from targetdiarization_tpu_torch.processors.audio import AudioProcessor
-from torch_stream_systems import small_separators
+from test_torch_stream_systems import small_separators
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = {k: os.path.join(REPO, "checkpoints", f"{k}-bootstrap") for k in ("vad", "spk", "asr")}
