@@ -9,8 +9,13 @@ front end (`FusedFrontend.analyze` and `enroll`, and
 on a synthetic two-voice conversation, drive the whole offline pipeline,
 `TargetDiarization.infer`, on the eight shipped checkpoints it loads, with
 the 512/24 separator and Apollo restoration (`checkpoints/rest-bootstrap`),
-and drive the streaming pipeline, `TargetDiarizationStream.infer_stream`,
-on the server's `build_model()`: one session, then four at once.
+drive the streaming pipeline, `TargetDiarizationStream.infer_stream`,
+on the server's `build_model()`: one session, then four at once, and
+drive the rest of `build_model()`'s engines (`surface`): the flow
+enhancer (`checkpoints/enh-bootstrap`) through `enhance_audio` on 10 s,
+emotion (`checkpoints/emo-bootstrap`) in bf16 against float32, and the
+Paraformer's forced alignment (`timestamp_prediction`) and the VAD's
+`get_speech_timestamps` and `is_speech`.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -27,7 +32,11 @@ agreement with the plain paths), the ASR stage, the front end and `infer`
 breakdown by span and by kernel, agreement) and the stream (warm-up, one
 20 s session's intake and emission latencies, launches per span,
 synchronous against asynchronous flushes, a profiler breakdown, agreement
-with the plain path, four concurrent paced sessions against each alone).
+with the plain path, four concurrent paced sessions against each alone),
+and the surface (the enhancer's times at nfe 1, 64 and 128 against its
+float32 FMA bound and its agreement with its CPU run, emotion's time and
+bf16 agreement, forced alignment's branch and timestamps, launches per
+forward, kernels against plain).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -1907,6 +1916,180 @@ def check_stream(seconds: float = 20.0, device: str = "cuda") -> dict:
     return s1_launches
 
 
+# ---------------- the surface: build_model's enhancer and emotion engine, forced alignment ----------------
+
+
+SURFACE_CHECKPOINTS = {name: os.path.join(ROOT, "checkpoints", f"{name}-bootstrap")
+                       for name in ("enh", "emo")}
+# emotion in bf16 against float32: the most a probability may move, and the
+# float32 lead of the top class under which the argmax counts as a tie
+EMO_TIE = 0.1
+
+
+def enhancer_flops(enhancer, n: int) -> float:
+    """Multiply-add work (2 flops each) of one FlowEnhancer forward on an
+    n-sample piece, counted on this run's shapes by hooks on its
+    convolutions; a transposed conv at its non-zero work (each input pixel
+    times the kernel), as the stride-dilated zeros cost nothing."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.enhancement import HOP, N_FFT
+    from targetdiarization_tpu_torch.ops.conv import ConvTranspose2d
+
+    total = [0.0]
+
+    def count(mod, args, out):
+        kh, kw = mod.kernel_size
+        pix = args[0].shape[-2] * args[0].shape[-1] if isinstance(mod, ConvTranspose2d) \
+            else out.shape[-2] * out.shape[-1]
+        total[0] += 2.0 * mod.in_channels * mod.out_channels * kh * kw * pix * out.shape[0]
+
+    model = enhancer.model
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    frames = n // HOP + 1
+    with torch.inference_mode():
+        z = torch.zeros(1, frames, N_FFT // 2 + 1, device=enhancer.device)
+        model(z, torch.zeros(1, device=enhancer.device), z)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def check_surface(device: str = "cuda") -> dict:
+    """`build_model()`'s enhancer and emotion engine, and the ASR stage's
+    forced alignment and VAD helpers, on the card: the enhancer timed on a
+    10 s clip at quality 2 (nfe 64), nfe 1 and nfe 128 against its float32
+    FMA bound, and held at tau 0 against its own CPU run; emotion in bf16
+    against float32 (the same argmax where float32's top class leads by more
+    than EMO_TIE); timestamp_prediction, get_speech_timestamps and
+    is_speech with their dwconv launches counted per forward and held
+    against the plain kernels."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.emotion import EmotionEngine
+    from targetdiarization_tpu_torch.models.enhancement import EnhancerEngine
+
+    t = time.time()
+    model = load_stream(device=device)
+    ap, asrp = model.ap, model.tasr.asrp
+    emit("surface_load", load_s=time.time() - t, quality=ap.quality,
+         enhancer=type(ap.enhancer).__name__, emotion=type(asrp.emotion).__name__,
+         emotion_dtype=str(getattr(asrp.emotion, "compute_dtype", None)))
+    if not (isinstance(ap.enhancer, EnhancerEngine) and isinstance(asrp.emotion, EmotionEngine)
+            and ap.enhancer.device.type == device and ap.quality == 2):
+        raise AssertionError("build_model did not load the enhancer and the emotion engine "
+                             f"on {device} at quality 2")
+
+    # the enhancer: one 10 s piece (the top bucket), warmed at that shape
+    clip = conversation(10.0, seed=31)
+    clip = clip + (0.01 * np.random.default_rng(31).standard_normal(len(clip))).astype(np.float32)
+    flops = enhancer_flops(ap.enhancer, len(clip))
+    ap.enhance_audio(clip, SR, nfe=1)
+    timings = {}
+    for label, nfe in (("quality 2", None), ("nfe 1", 1), ("nfe 128", 128)):
+        steps = nfe or 64
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = ap.enhance_audio(clip, SR, nfe=nfe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if out.shape != clip.shape or not np.isfinite(out).all():
+            raise AssertionError(f"enhance_audio {label}: shape {out.shape} or non-finite output")
+        timings[label] = {"nfe": steps, "forwards": 2 * steps, "wall_s": wall,
+                          "ms_per_forward": wall / (2 * steps) * 1e3,
+                          "fma_bound_s": 2 * steps * flops / PEAK_FLOPS["float32"]}
+    emit("surface_enhance", clip_s=len(clip) / SR, gflop_per_forward=flops / 1e9, **timings)
+    profile_call(lambda: ap.enhance_audio(clip, SR, nfe=4), "enhance_audio 10 s, nfe 4", top=12)
+
+    # the card's enhance against the port's own CPU run: tau 0 takes the
+    # prior noise out, nfe 2, 1 s
+    one = clip[:SR]
+    got = ap.enhancer.enhance(one, nfe=2, tau=0.0)
+    cpu = EnhancerEngine.from_pretrained(SURFACE_CHECKPOINTS["enh"], device="cpu").enhance(one, nfe=2, tau=0.0)
+    sdr = si_sdr(got, cpu)
+    emit("surface_enhance_vs_cpu", si_sdr_db=sdr, max_abs_err=float(np.abs(got - cpu).max()))
+    if not sdr >= 40.0:
+        raise AssertionError(f"enhance on the card vs the CPU: {sdr:.1f} dB < 40 dB")
+
+    # emotion: the bf16 engine against a float32 one on the card
+    emo32 = EmotionEngine.from_pretrained(SURFACE_CHECKPOINTS["emo"], device=device,
+                                          compute_dtype="float32")
+    data = asr_inputs()
+    clips = {"0.5 s": data["utts"][0][: SR // 2], **{f"{len(u) / SR:.2f} s": u
+                                                     for u in data["utts"]},
+             "12 s": data["long"][: 12 * SR]}
+    asrp.emotion_detection(clips["12 s"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    asrp.emotion_detection(clips["12 s"])
+    torch.cuda.synchronize()
+    emo_ms = (time.perf_counter() - t) * 1e3
+    rows = {}
+    for name, c in clips.items():
+        from targetdiarization_tpu_torch.models.emotion import _SAMPLE_LADDER
+        from targetdiarization_tpu_torch.models.features import num_frames
+
+        padded = np.pad(c, (0, _SAMPLE_LADDER.bucket(len(c)) - len(c)))[None]
+        pb, pf = asrp.emotion.probs(padded, [num_frames(len(c))])[0], \
+            emo32.probs(padded, [num_frames(len(c))])[0]
+        top2 = np.sort(pf)[-2:]
+        rows[name] = {"argmax_bf16": int(pb.argmax()), "argmax_f32": int(pf.argmax()),
+                      "f32_top2_margin": float(top2[1] - top2[0]),
+                      "max_abs_diff": float(np.abs(pb - pf).max())}
+    emit("surface_emotion", emotion_detection_12s_ms=emo_ms, clips=rows)
+    # one bf16 step of a logit near 20 is 0.125, which moves a probability
+    # by a few hundredths: a near tie in float32 may resolve either way
+    decisive = [r for r in rows.values() if r["f32_top2_margin"] > EMO_TIE]
+    if (len(decisive) < 4 or any(r["argmax_bf16"] != r["argmax_f32"] for r in decisive)
+            or any(r["max_abs_diff"] > EMO_TIE for r in rows.values())):
+        raise AssertionError(f"emotion: bf16 against float32: {rows}")
+
+    # forced alignment and the VAD helpers, counted
+    def run_align():
+        ts = [asrp.timestamp_prediction(u, text) for u, text in zip(data["utts"], data["texts"])]
+        speech = asrp.vad.get_speech_timestamps(data["long"])
+        speech_s = asrp.vad.get_speech_timestamps(data["long"], return_seconds=True)
+        flags = [asrp.vad.is_speech(data["long"]), asrp.vad.is_speech(np.zeros(SR, np.float32))]
+        return ts, speech, speech_s, flags
+
+    run_align()
+    forwards = {"asr": 0, "vad": 0}
+    hooks = [asrp.asr.model.register_forward_hook(
+                 lambda *_: forwards.__setitem__("asr", forwards["asr"] + 1)),
+             asrp.vad.model.register_forward_hook(
+                 lambda *_: forwards.__setitem__("vad", forwards["vad"] + 1))]
+    reset_launches()
+    ts, speech, speech_s, flags = run_align()
+    launches = read_launches()
+    for h in hooks:
+        h.remove()
+    with plain_kernels():
+        ts_p, speech_p, _, flags_p = run_align()
+    branch = ["forced alignment" if len(asrp.asr.force_align(u, len(text))) == len(text)
+              else "VAD split" for u, text in zip(data["utts"], data["texts"])]
+    emit("surface_align", texts=data["texts"], branch=branch, timestamps=ts,
+         speech_segments=len(speech), speech_s=speech_s, is_speech=flags, forwards=forwards,
+         launches=launches)
+    want = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0,
+            "dwconv": 12 * forwards["asr"] + 4 * forwards["vad"]}
+    if launches != want or not forwards["asr"] or not forwards["vad"]:
+        raise AssertionError(f"surface: launches {launches} with {forwards} forwards, want {want}")
+    for u, text, r, rp in zip(data["utts"], data["texts"], ts, ts_p):
+        flat = [x for se in r for x in se]
+        if len(r) != len(text) or flat != sorted(flat) or flat[0] < 0 \
+                or flat[-1] > len(u) / SR * 1000:
+            raise AssertionError(f"timestamp_prediction of {text!r}: {r}")
+        if len(rp) != len(r) or max(abs(a - b) for a, b in
+                                    zip(flat, [x for se in rp for x in se])) > 60:
+            raise AssertionError(f"timestamp_prediction kernels vs plain: {r} vs {rp}")
+    if flags != [True, False] or flags_p != flags or len(speech_p) != len(speech) or any(
+            abs(a[k] - b[k]) > 0.1 * SR for a, b in zip(speech, speech_p) for k in a):
+        raise AssertionError(f"VAD helpers: {speech} / {flags} vs plain {speech_p} / {flags_p}")
+    torch.cuda.synchronize()
+    return launches
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -1984,7 +2167,8 @@ def main() -> None:
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr(),
                      "FusedFrontend": check_frontend(),
                      "TargetDiarization.infer": check_infer(),
-                     "TargetDiarizationStream.infer_stream": check_stream()}
+                     "TargetDiarizationStream.infer_stream": check_stream(),
+                     "surface": check_surface()}
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

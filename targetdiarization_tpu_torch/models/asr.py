@@ -159,7 +159,9 @@ class CIFPredictor(nn.Module):
     """Frame weights alpha from a 3-tap conv and a sigmoid, integrated and
     fired in float32. At inference a virtual frame carrying 0.45 of alpha
     mass follows the last valid frame, so a last token short of the
-    threshold still fires; its fire frame is clamped to the last valid one."""
+    threshold still fires; its fire frame is clamped to the last valid one.
+    With `target_len` (B,) (forced alignment) the alphas are scaled, in
+    their own type, to sum to it, and no tail frame is added."""
 
     def __init__(self, dim: int = 512, threshold: float = 1.0, tail_threshold: float = 0.45):
         super().__init__()
@@ -167,9 +169,14 @@ class CIFPredictor(nn.Module):
         self.conv = nn.Conv1d(dim, dim, 3, padding=1)
         self.alpha = nn.Linear(dim, 1)
 
-    def forward(self, enc, mask):
+    def forward(self, enc, mask, target_len=None):
         h = torch.relu(self.conv(enc.transpose(1, 2)).transpose(1, 2))
         alphas = torch.sigmoid(self.alpha(h))[..., 0] * mask
+        if target_len is not None:
+            total = torch.clamp_min(alphas.sum(dim=1, keepdim=True), 1e-6)
+            alphas = alphas / total * target_len.to(alphas.dtype)[:, None]
+            tokens, fire_frames, n_tokens = cif_fire(enc.float(), alphas.float(), self.threshold)
+            return tokens.to(enc.dtype), fire_frames, n_tokens, alphas
         enc_f, alphas_f = enc.float(), alphas.float()
         b, t = alphas.shape
         # the valid-frame count in the mask's type, as the JAX model sums it:
@@ -202,11 +209,12 @@ class Paraformer(nn.Module):
         self.dec_ln = nn.LayerNorm(dim, eps=LN_EPS)
         self.vocab_proj = nn.Linear(dim, vocab_size)
 
-    def forward(self, feats, mask) -> dict:
+    def forward(self, feats, mask, target_len=None) -> dict:
         """feats (B, T, 560), mask (B, T) -> logits (B, T, V) over T token
-        slots, n_tokens (B,), fire_frames (B, T), alphas, encoder_out."""
+        slots, n_tokens (B,), fire_frames (B, T), alphas, encoder_out; with
+        `target_len` (B,), the CIF is forced to that many tokens."""
         enc = self.encoder(feats, mask)
-        tokens, fire_frames, n_tokens, alphas = self.predictor(enc, mask)
+        tokens, fire_frames, n_tokens, alphas = self.predictor(enc, mask, target_len)
         u = tokens.shape[1]
         tok_mask = (torch.arange(u, device=feats.device)[None, :]
                     < n_tokens[:, None]).to(feats.dtype)
@@ -291,9 +299,10 @@ class ASREngine:
         return cls(from_pretrained(path), tokenizer=tok, cmvn=cmvn, device=device,
                    compute_dtype=compute_dtype)
 
-    def forward_device(self, batch: np.ndarray, ts: list) -> dict:
+    def forward_device(self, batch: np.ndarray, ts: list, target_len: list | None = None) -> dict:
         """(rows, bucket) float or int16 audio and LFR frame counts -> the
-        model's output dict, on the device (call under torch.inference_mode)."""
+        model's output dict, on the device (call under torch.inference_mode);
+        `target_len`, a token count per row, forces the CIF to it."""
         audio = torch.from_numpy(quantize_i16(batch)).to(self.device)
         feats = features.lfr(features.fbank(dequantize_audio(audio)), LFR_M, LFR_N)
         if self.cmvn is not None:
@@ -301,7 +310,9 @@ class ASREngine:
         t = feats.shape[1]
         n = torch.tensor(ts, device=self.device)
         mask = (torch.arange(t, device=self.device)[None, :] < n[:, None]).to(self.compute_dtype)
-        return self.model(feats.to(self.compute_dtype), mask)
+        if target_len is not None:
+            target_len = torch.tensor(target_len, device=self.device, dtype=torch.float32)
+        return self.model(feats.to(self.compute_dtype), mask, target_len)
 
     def _dispatch(self, batch: np.ndarray, ts: list) -> dict:
         with torch.inference_mode():
@@ -319,6 +330,31 @@ class ASREngine:
         keep = [i for i, tid in enumerate(ids)
                 if self.tokenizer.vocab[int(tid)] not in ("<blank>", "<s>", "</s>")]
         return {"text": text, "timestamp": [ts_list[i] for i in keep if i < len(ts_list)]}
+
+    def force_align(self, audio: np.ndarray, n_tokens: int, sr: int = SR) -> list:
+        """[start_ms, end_ms] per token for a known token count, by CIF forced
+        alignment: the alphas scaled so that n_tokens fire (at most one per
+        LFR frame). Audio past the top rung (60 s) is dropped. Fewer
+        entries come back where the scaled alphas' float32 sum lands short
+        of the last token's threshold."""
+        if n_tokens <= 0:
+            return []
+        audio = np.asarray(audio, np.float32)
+        if sr != SR:
+            from ..ops.resample import resample_poly_np
+
+            audio = resample_poly_np(audio, SR, sr)
+        audio = audio[:_SAMPLE_LADDER.rungs[-1]]
+        n_valid = features.num_frames(len(audio))
+        if n_valid == 0:
+            return []
+        t = -(-n_valid // LFR_N)
+        n_tokens = min(n_tokens, t)
+        padded = pad_to(audio, _SAMPLE_LADDER.bucket(len(audio)))[None]
+        with torch.inference_mode():
+            fire = self.forward_device(padded, [t], [n_tokens])["fire_frames"]
+            fire = fire[0, :n_tokens].cpu().numpy()
+        return fire_frames_to_timestamps(fire, t)
 
     def asr_detection(self, audio: np.ndarray, sr: int = SR) -> list:
         """[{"text", "timestamp"}] for one utterance; audio above the top

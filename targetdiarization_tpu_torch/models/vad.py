@@ -178,6 +178,22 @@ class VADEngine:
         VADConfig apply to this call only."""
         return self.vad_detection_batch([audio], sr=sr, cfg=cfg, **over)[0]
 
+    def get_speech_timestamps(self, audio: np.ndarray, sr: int = SR,
+                              return_seconds: bool = False, **over) -> list:
+        """silero-vad's form: [{"start", "end"}, ...] in samples at `sr`
+        (truncated), or in seconds with `return_seconds`."""
+        segs = self.vad_detection(audio, sr=sr, **over)
+        if return_seconds:
+            return [{"start": s, "end": e} for s, e in segs]
+        return [{"start": int(s * sr), "end": int(e * sr)} for s, e in segs]
+
+    def is_speech(self, audio: np.ndarray, sr: int = SR, min_ratio: float = 0.1) -> bool:
+        """At least `min_ratio` of the frames above 0.5 speech probability."""
+        probs = self.frame_probs(audio, sr=sr)
+        if probs.size == 0:
+            return False
+        return float(np.mean(probs > 0.5)) >= min_ratio
+
 
 # ---------------- host-side state machine ----------------
 

@@ -49,12 +49,35 @@ class Conv2dSame(nn.Conv2d):
         return _add_bias(y, self.bias, 2)
 
 
+def transpose_pads(k: int, stride: int) -> tuple[int, int]:
+    """(before, after) padding of the stride-dilated input in flax's
+    ConvTranspose with "SAME" (lax's `_conv_transpose_padding`): k + s - 2
+    in all, k - 1 before where s > k - 1, else the larger half before."""
+    total = k + stride - 2
+    before = k - 1 if stride > k - 1 else -(-total // 2)
+    return before, total - before
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """flax ConvTranspose with kernel = stride ("SAME" pads nothing there;
-    the converter flips the kernel), the bias added apart."""
+    """flax ConvTranspose with "SAME" padding (the converter flips the
+    kernel), the bias added apart. lax pads the dilated input by
+    `transpose_pads` on each axis; torch's transposed conv with padding p
+    pads it by k - 1 - p on both sides, so p takes the larger pad and the
+    output is cropped where the other side's pad is smaller. Kernel =
+    stride pads nothing; a 4x4 kernel of stride 2 pads 1 on both sides."""
 
     def forward(self, x):
-        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        padding, crops = [], []
+        for k, s in zip(self.kernel_size, self.stride):
+            before, after = transpose_pads(k, s)
+            if max(before, after) > k - 1:
+                raise ValueError(f"kernel {k} with stride {s} pads past the kernel")
+            padding.append(k - 1 - max(before, after))
+            crops.append((max(before, after) - before, max(before, after) - after))
+        y = F.conv_transpose2d(x, self.weight, None, self.stride, tuple(padding))
+        (h0, h1), (w0, w1) = crops
+        if h0 or h1 or w0 or w1:
+            y = y[..., h0: y.shape[-2] - h1, w0: y.shape[-1] - w1]
         return _add_bias(y, self.bias, 2)
 
 

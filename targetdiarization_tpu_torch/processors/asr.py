@@ -1,15 +1,16 @@
-"""ASRProcessor: VAD, Paraformer ASR, punctuation and the segmentation
-diarizer.
+"""ASRProcessor: VAD, Paraformer ASR, punctuation, timestamps, emotion, the
+segmentation diarizer and F0.
 
-Counterpart of the VAD, local-Paraformer, punctuation and diarization
-parts of targetdiarization_tpu/processors/asr.py::ASRProcessor. Each engine
-is loaded from the checkpoint path it is given, or the constructor raises;
-an empty path leaves the engine out: `vad_detection` then returns the
-whole clip, `asr_detection` an empty result, `punctuation_restore` the
-text unchanged and `speaker_diarization` no segments. Unlike the JAX
-package, no path means no VAD: there is no random-weight engine. The cloud
-engines are not ported: `asr_detection` with one of API_ENGINES raises.
-The calls run inside the JAX package's trace spans (`asr/...`).
+Counterpart of targetdiarization_tpu/processors/asr.py::ASRProcessor less
+its SenseVoice, whisper and cloud engines. Each engine is loaded from the
+checkpoint path it is given, or the constructor raises; an empty path
+leaves the engine out: `vad_detection` then returns the whole clip,
+`asr_detection` an empty result, `punctuation_restore` the text
+unchanged, `emotion_detection` no labels and `speaker_diarization` no
+segments. Unlike the JAX package, no path means no VAD: there is no
+random-weight engine. The cloud engines are not ported: `asr_detection`
+with one of API_ENGINES raises. The calls run inside the JAX package's
+trace spans (`asr/...`).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ class ASRProcessor:
     API_ENGINES = ("tencent_api", "xunfei_api", "gemini_api", "jzx_api")
 
     def __init__(self, vad_model: str = "", asr_model: str = "", asr_engine: str = "paraformer",
-                 punc_model: str = "", diarization_model: str = "",
+                 punc_model: str = "", emotion_model: str = "", diarization_model: str = "",
                  device: str | torch.device = "cuda", compute_dtype: str | None = None):
         if asr_engine != "paraformer":
             raise NotImplementedError(f"ASR engine {asr_engine!r} is not ported; "
@@ -47,7 +48,9 @@ class ASRProcessor:
         self.asr = _load(ASREngine, asr_model, "ASR", device, compute_dtype)
         self.punc = _load(PunctuationEngine, punc_model, "punctuation", device, compute_dtype)
         from ..models.diarization import SegmentationEngine
+        from ..models.emotion import EmotionEngine
 
+        self.emotion = _load(EmotionEngine, emotion_model, "emotion", device, compute_dtype)
         self.diarizer = _load(SegmentationEngine, diarization_model, "diarization", device,
                               compute_dtype)
 
@@ -151,6 +154,51 @@ class ASRProcessor:
             done = iter(self.punc.punctuation_restore_batch(todo))
         return [next(done) if t else t for t in texts]
 
+    def timestamp_prediction(self, audio_data: np.ndarray, text: str,
+                             sampling_rate: int = 16000) -> list:
+        """[start_ms, end_ms] per character of `text`. With the Paraformer,
+        CIF forced alignment to the count of non-space characters, taken
+        when it gives that many; otherwise the VAD's speech (or the whole
+        clip) split evenly over every character of `text`, spaces
+        included, as the JAX package does."""
+        if not text:
+            return []
+        chars = [c for c in text if not c.isspace()]
+        if self.asr is not None and chars:
+            ts = self.asr.force_align(audio_data, len(chars), sr=sampling_rate)
+            if len(ts) == len(chars):
+                return ts
+        segs = self.vad_detection(audio_data, sampling_rate)
+        if not segs:
+            segs = [[0.0, len(audio_data) / sampling_rate]]
+        per_char = sum(e - s for s, e in segs) / len(text)
+        out = []
+        seg_iter = iter(segs)
+        seg = next(seg_iter)
+        pos = seg[0]
+        for _ in text:
+            start = pos
+            remain = per_char
+            while remain > 0 and seg is not None:
+                avail = seg[1] - pos
+                if avail >= remain:
+                    pos += remain
+                    remain = 0
+                else:
+                    remain -= avail
+                    seg = next(seg_iter, None)
+                    pos = seg[0] if seg else pos
+            out.append([int(start * 1000), int(pos * 1000)])
+        return out
+
+    # ---------------- emotion ----------------
+
+    def emotion_detection(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> dict:
+        """{"labels", "scores"} of the emotion engine; no labels without one."""
+        if self.emotion is not None:
+            return self.emotion.emotion_detection(audio_data, sr=sampling_rate)
+        return {"labels": [], "scores": []}
+
     # ---------------- diarization ----------------
 
     def speaker_diarization(self, audio_data: np.ndarray, sampling_rate: int = 16000) -> dict:
@@ -161,3 +209,33 @@ class ASRProcessor:
         sd = self.diarizer.diarize(audio_data, sr=sampling_rate)
         return {"text": sorted(([s, e, int(spk)] for spk, ranges in sd.items()
                                 for s, e in ranges), key=lambda x: x[0])}
+
+    # ---------------- F0 ----------------
+
+    def f0_compute(self, audio_data: np.ndarray, sampling_rate: int = 16000,
+                   fmin: float = 65.0, fmax: float = 400.0) -> np.ndarray:
+        """F0 in Hz per 10 ms hop of 40 ms frames by normalized
+        autocorrelation (0 where the frame is silent or the peak is at most
+        0.3), on the host."""
+        a = np.asarray(audio_data, np.float32)
+        frame, hop = int(0.04 * sampling_rate), int(0.01 * sampling_rate)
+        if len(a) < frame:
+            return np.zeros(0, np.float32)
+        n = 1 + (len(a) - frame) // hop
+        lag_min = int(sampling_rate / fmax)
+        lag_max = min(int(sampling_rate / fmin), frame - 1)
+        out = np.zeros(n, np.float32)
+        for i in range(n):
+            w = a[i * hop: i * hop + frame]
+            w = w - w.mean()
+            ac = np.correlate(w, w, "full")[frame - 1:]
+            if ac[0] <= 1e-9:
+                continue
+            ac = ac / ac[0]
+            seg = ac[lag_min:lag_max]
+            if seg.size == 0:
+                continue
+            peak = int(np.argmax(seg)) + lag_min
+            if ac[peak] > 0.3:
+                out[i] = sampling_rate / peak
+        return out

@@ -4,10 +4,10 @@ constructor keywords, read once at start-up.
 Counterpart of targetdiarization_tpu/runtime/config.py, with the same
 field and environment names, holding only the fields that
 `serve/server.py::build_model` reads. Left out: `compute_dtype` (the
-engines read TD_COMPUTE_DTYPE), the fields of stages the port lacks
-(enhancement, emotion, the diarization and embedding-name presets) and
-those the JAX server never passes on (`long_audio_threshold`,
-`chunk_duration`, `extra`). `device` is "cuda" (the card) or "cpu".
+engines read TD_COMPUTE_DTYPE), the fields of stages the port lacks (the
+diarization and embedding-name presets) and those the JAX server never
+passes on (`long_audio_threshold`, `chunk_duration`, `extra`). `device`
+is "cuda" (the card) or "cpu".
 """
 
 from __future__ import annotations
@@ -56,9 +56,11 @@ class FrameworkConfig:
     denoise_model: str = ""
     separation_model: str = ""
     restoration_model: str = ""
+    enhancement_model: str = ""  # the flow enhancer (FlowEnhancer)
     asr_model: str = ""
     asr_engine: str = "paraformer"
     punc_model: str = ""
+    emotion_model: str = ""
 
     # Offline pipeline thresholds
     target_similarity_threshold: float = 0.0

@@ -254,7 +254,23 @@ def apollo_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(_dense_rules(flatten(tree.get("params", tree)), ()))
 
 
+def flow_enhancer_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.enhancement.FlowEnhancer`: the modules keep the
+    JAX names; `up1` and `up2` are ConvTranspose."""
+    sd = _conv_rules(flatten(tree.get("params", tree)), (),
+                     transposed=(re.compile(r"^up\d+/"),))
+    return _to_tensors(sd)
+
+
+def emotion_net_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.emotion.EmotionNet`."""
+    flat = _attention_rules(flatten(tree.get("params", tree)), r"^attn_\d+/")
+    sd = _conv_rules(flat, ((re.compile(r"^(ln|attn)_(\d+)/"), r"\1/\2/"),))
+    return _to_tensors(sd)
+
+
 CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_state_dict,
               "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict,
               "TDFUNet": tdfunet_state_dict, "SegmentationNet": segmentation_state_dict,
-              "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict}
+              "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict,
+              "FlowEnhancer": flow_enhancer_state_dict, "EmotionNet": emotion_net_state_dict}

@@ -3,7 +3,8 @@
 Counterpart of targetdiarization_tpu/runtime/registry.py::from_pretrained:
 the checkpoint's own `model_name` picks the class. The ported models are
 MossFormer2, Paraformer, CTTransformerPunc, FsmnVADNet, TDFUNet,
-SegmentationNet, ERes2NetV2 and Apollo; any other name raises.
+SegmentationNet, ERes2NetV2, Apollo, FlowEnhancer and EmotionNet; any
+other name raises.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ def get_model_cls(name: str):
     from ..models.asr import Paraformer
     from ..models.denoise import TDFUNet
     from ..models.diarization import SegmentationNet
+    from ..models.emotion import EmotionNet
+    from ..models.enhancement import FlowEnhancer
     from ..models.punctuation import CTTransformerPunc
     from ..models.restoration import Apollo
     from ..models.separation import MossFormer2
@@ -27,7 +30,7 @@ def get_model_cls(name: str):
     models = {"MossFormer2": MossFormer2, "Paraformer": Paraformer,
               "CTTransformerPunc": CTTransformerPunc, "FsmnVADNet": FsmnVADNet,
               "TDFUNet": TDFUNet, "SegmentationNet": SegmentationNet, "ERes2NetV2": ERes2NetV2,
-              "Apollo": Apollo}
+              "Apollo": Apollo, "FlowEnhancer": FlowEnhancer, "EmotionNet": EmotionNet}
     if name not in models:
         raise KeyError(f"model {name!r} is not ported; ported: {sorted(models)}")
     return models[name]

@@ -110,10 +110,11 @@ def build_model(config=None, device: str | None = None):
     default). A stage without a configured checkpoint takes the shipped
     one: the 512/24 separator `sep-bootstrap-512` on the card and the
     256/12 `sep-bootstrap` on the CPU (TD_SEP_CHECKPOINT names another),
-    and `vad-`, `asr-`, `punc-`, `spk-`, `seg-`, `den-` and
-    `rest-bootstrap`. The engines compute in the card's types (bf16 on the
-    card, float32 on the CPU; TD_COMPUTE_DTYPE overrides). Enhancement and
-    emotion are not ported; one card needs no mesh."""
+    and `vad-`, `asr-`, `punc-`, `spk-`, `seg-`, `den-`, `rest-`, `enh-`
+    and `emo-bootstrap`, the JAX `build_model`'s engine set. The engines
+    compute in the card's types (bf16 on the card, float32 on the CPU;
+    TD_COMPUTE_DTYPE overrides), the enhancer in float32 as the JAX one
+    does; one card needs no mesh."""
     from ..models.diarization import SegmentationEngine
     from ..pipeline.streaming import TargetDiarizationStream
     from ..pipeline.target_asr import TargetASR
@@ -127,7 +128,9 @@ def build_model(config=None, device: str | None = None):
         "vad_model": "vad-bootstrap", "separation_model": _separator_checkpoint_name(REPO, device),
         "embedding_model": "spk-bootstrap", "segmentation_model": "seg-bootstrap",
         "denoise_model": "den-bootstrap", "restoration_model": "rest-bootstrap",
+        "enhancement_model": "enh-bootstrap",
         "asr_model": _asr_checkpoint_name(REPO, cfg.asr_engine), "punc_model": "punc-bootstrap",
+        "emotion_model": "emo-bootstrap",
     }
     for name, ckpt in defaults.items():
         path = os.path.join(REPO, "checkpoints", ckpt)
@@ -135,10 +138,12 @@ def build_model(config=None, device: str | None = None):
             setattr(cfg, name, path)
             logger.info(f"using bootstrap checkpoint for {name}: {path}")
     ap = AudioProcessor(separation_model=cfg.separation_model, denoise_model=cfg.denoise_model,
-                        restoration_model=cfg.restoration_model, quality=cfg.quality,
+                        restoration_model=cfg.restoration_model,
+                        enhancement_model=cfg.enhancement_model, quality=cfg.quality,
                         device=device, verbose_log=cfg.verbose_log)
     asrp = ASRProcessor(vad_model=cfg.vad_model, asr_model=cfg.asr_model,
-                        asr_engine=cfg.asr_engine, punc_model=cfg.punc_model, device=device)
+                        asr_engine=cfg.asr_engine, punc_model=cfg.punc_model,
+                        emotion_model=cfg.emotion_model, device=device)
     tasr = TargetASR(audio_processor=ap, asr_processor=asrp,
                      embedding_model=cfg.embedding_model, device=device,
                      verbose_log=cfg.verbose_log)

@@ -3,13 +3,19 @@
 The port's copy of the PCM WAV branch of targetdiarization_tpu/utils/
 audio_io.py: 8-, 16-, 24- and 32-bit integer PCM from a path, bytes or a
 binary file object (`io.BytesIO`), as float32 in [-1, 1], (T,) for mono
-and (C, T) for several channels. Compressed formats and URLs are not
-read here.
+and (C, T) for several channels; and its writers: 16-bit PCM WAV as the
+JAX package writes it, other formats through ffmpeg where it is on the
+PATH, and the int16 byte converters of the WebSocket protocol.
+Compressed formats are not read here, and URLs are fetched by
+`AudioProcessor.download_audio`.
 """
 
 from __future__ import annotations
 
 import io
+import os
+import shutil
+import subprocess
 
 import numpy as np
 
@@ -61,13 +67,46 @@ def read_audio(source, sample_rate: int | None = None) -> tuple[np.ndarray, int]
     return audio, sr
 
 
-def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
-    """Mono float audio in [-1, 1] as 16-bit PCM WAV (clipped, rounded)."""
+def write_wav(path, audio: np.ndarray, sample_rate: int) -> None:
+    """Float audio in [-1, 1], (T,) or (C, T), as 16-bit PCM WAV: scaled by
+    32768, clipped to the int16 range and truncated toward zero, the
+    channels of a (C, T) input interleaved (the JAX package's writer)."""
     import wave
 
-    pcm = np.clip(np.round(np.asarray(audio, np.float32).ravel() * 32767.0), -32768, 32767)
-    with wave.open(str(path), "wb") as w:
-        w.setnchannels(1)
+    audio = np.asarray(audio)
+    nch = audio.shape[0] if audio.ndim == 2 else 1
+    interleaved = audio.T if audio.ndim == 2 else audio
+    pcm = np.clip(interleaved * 32768.0, -32768, 32767).astype("<i2")
+    with wave.open(os.fspath(path), "wb") as w:
+        w.setnchannels(nch)
         w.setsampwidth(2)
         w.setframerate(int(sample_rate))
-        w.writeframes(pcm.astype("<i2").tobytes())
+        w.writeframes(pcm.tobytes())
+
+
+def write_audio(path, audio: np.ndarray, sample_rate: int) -> None:
+    """`write_wav` for a .wav path, or where no ffmpeg is on the PATH;
+    another extension is written as WAV to a temporary file beside `path`
+    and converted by ffmpeg."""
+    path = os.fspath(path)
+    ffmpeg = shutil.which("ffmpeg")
+    if path.lower().endswith(".wav") or ffmpeg is None:
+        write_wav(path, audio, sample_rate)
+        return
+    tmp = path + ".tmp.wav"
+    write_wav(tmp, audio, sample_rate)
+    try:
+        subprocess.run([ffmpeg, "-y", "-i", tmp, path], capture_output=True, check=True)
+    finally:
+        os.unlink(tmp)
+
+
+def float32_to_int16_bytes(audio: np.ndarray) -> bytes:
+    """Float audio in [-1, 1] -> little-endian int16 bytes (x32768, clipped,
+    truncated), in the array's order."""
+    return np.clip(np.asarray(audio) * 32768.0, -32768, 32767).astype("<i2").tobytes()
+
+
+def int16_bytes_to_float32(raw: bytes) -> np.ndarray:
+    """Little-endian int16 bytes -> float32 in [-1, 1]."""
+    return np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0

@@ -258,15 +258,14 @@ def test_run_modules_matches_jax(processors, rng):
 
 @pytest.mark.parametrize("stage", ["restore", "enhance", {"restore_audio": {}}])
 def test_run_modules_refuses_unported_stages(stage, processors):
-    """Enhancement is not ported and raises. Restoration is (Apollo, since
-    the infer slice): without a restorer it passes the audio through, as
-    the JAX package's does (`test_torch_restoration.py` runs it with one)."""
+    """No stage of the chain is refused any more: restoration (Apollo, since
+    the infer slice) and enhancement (the flow enhancer, since the surface
+    slice) are ported. Without a restorer or an enhancer both pass the
+    audio through, as the JAX package's do (enhancement restores when no
+    enhancer is loaded); `test_torch_restoration.py` and
+    `test_torch_enhancement.py` run them with their models."""
     x = np.linspace(-0.5, 0.5, SR).astype(np.float32)
-    if stage == "enhance":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            processors[0].run_modules(x, SR, [stage])
-        return
-    assert processors[0].restorer is None
+    assert processors[0].restorer is None and processors[0].enhancer is None
     np.testing.assert_array_equal(processors[0].run_modules(x, SR, [stage]), x)
     np.testing.assert_array_equal(processors[1].run_modules(x, SR, [stage]), x)
 

@@ -3,9 +3,11 @@
 The machine with the card has PyTorch and no jax, flax, scikit-learn or
 aiohttp, so the port and chip_smoke.py must import and run with jax, flax,
 sklearn and the JAX package unimportable: the separator, the ASR stage, the
-fused front end, `TargetDiarization.infer`, and the streaming and serving
-entry points (`build_model`, `infer_stream`, the server app, the CLI) on
-the shipped checkpoints; without aiohttp too, all but the server app.
+fused front end, `TargetDiarization.infer`, the streaming and serving
+entry points (`build_model`, `infer_stream`, the server app, the CLI) and
+the rest of the public surface (the enhancer, emotion, forced alignment,
+the VAD helpers, the DSP toolbox) on the shipped checkpoints; without
+aiohttp too, all but the server app.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -248,6 +250,48 @@ def test_cli_and_stream_run_without_jax_or_aiohttp():
     """Without aiohttp `create_app` raises, and `build_model`,
     `infer_stream` and the CLI's `stream` and `infer` run."""
     proc = _run_blocked(_BLOCKED_CLI, extra=("aiohttp",))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_SURFACE = textwrap.dedent("""
+    import targetdiarization_tpu_torch as pkg
+    from chip_smoke import BOOT_CHARS, synth_utterance
+    from targetdiarization_tpu_torch.models.emotion import EmotionEngine
+    from targetdiarization_tpu_torch.models.enhancement import EnhancerEngine
+    from targetdiarization_tpu_torch.runtime import trace
+    from targetdiarization_tpu_torch.serve.server import build_model
+    model = build_model(device="cpu")
+    ap, asrp = model.ap, model.tasr.asrp
+    assert isinstance(ap.enhancer, EnhancerEngine) and isinstance(asrp.emotion, EmotionEngine)
+    assert pkg.AudioProcessor is type(ap) and pkg.ASRProcessor is type(asrp)
+    assert pkg.TargetDiarizationStream is type(model) and pkg.TargetASR is type(model.tasr)
+    assert pkg.TargetDiarization.__name__ == "TargetDiarization"
+    rng = np.random.default_rng(3)
+    text = "".join(BOOT_CHARS[int(rng.integers(len(BOOT_CHARS)))] for _ in range(6))
+    utt = np.concatenate([np.zeros(4000, np.float32), synth_utterance(text, rng)[0],
+                          np.zeros(4000, np.float32)])
+    trace.reset()
+    out = ap.run_modules(utt[:4000], 16000, [{"enhance_audio": {"sampling_rate": 16000,
+                                                                "nfe": 1}}])
+    assert out.shape == (4000,) and np.isfinite(out).all()
+    assert trace.GLOBAL_TRACER.as_dict()["audio/enhance_audio"]["calls"] == 1
+    emo = asrp.emotion_detection(utt)
+    assert len(emo["labels"]) == len(emo["scores"]) == 9
+    ts = asrp.timestamp_prediction(utt, text)
+    assert len(ts) == len(text), ts
+    assert asrp.vad.get_speech_timestamps(utt) and asrp.vad.is_speech(utt)
+    assert len(asrp.f0_compute(utt)) > 0
+    stretched = ap.audio_stretch(utt, 16000, 1.25)
+    assert 0.7 * len(utt) < len(stretched) < 0.9 * len(utt)
+""")
+
+
+def test_surface_runs_without_jax():
+    """`build_model` with its enhancer and emotion engine, the package
+    root's names, `run_modules` with enhancement, emotion, forced
+    alignment, the VAD helpers, F0 and the phase vocoder."""
+    proc = _run_blocked(_BLOCKED_SURFACE, extra=("aiohttp",))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 

@@ -305,8 +305,9 @@ def test_config_matches_jax(monkeypatch, tmp_path):
             assert getattr(ours, name) == getattr(theirs, name), name
     assert ours.device == "cuda"
     # only what build_model reads: a knob the port would ignore is absent
-    assert not {"compute_dtype", "long_audio_threshold", "chunk_duration", "extra",
-                "enhancement_model", "emotion_model"} & set(vars(ours))
+    assert not {"compute_dtype", "long_audio_threshold", "chunk_duration",
+                "extra"} & set(vars(ours))
+    assert {"enhancement_model", "emotion_model"} <= set(vars(ours))
 
 
 def test_build_model_reads_every_config_field():
