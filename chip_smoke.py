@@ -15,7 +15,12 @@ drive the rest of `build_model()`'s engines (`surface`): the flow
 enhancer (`checkpoints/enh-bootstrap`) through `enhance_audio` on 10 s,
 emotion (`checkpoints/emo-bootstrap`) in bf16 against float32, and the
 Paraformer's forced alignment (`timestamp_prediction`) and the VAD's
-`get_speech_timestamps` and `is_speech`.
+`get_speech_timestamps` and `is_speech`, and drive the alternate engines
+(`engines`): `build_model()` with ASR_ENGINE=sensevoice and
+EMBEDDING_MODEL=checkpoints/campp-bootstrap through `infer` and one
+`infer_stream` session, SenseVoice at its full width (seeded weights made
+on the card), a whisper engine at its class defaults (a seeded checkpoint
+written for the run) against its CPU run, and CAM++ against its CPU run.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -36,7 +41,10 @@ with the plain path, four concurrent paced sessions against each alone),
 and the surface (the enhancer's times at nfe 1, 64 and 128 against its
 float32 FMA bound and its agreement with its CPU run, emotion's time and
 bf16 agreement, forced alignment's branch and timestamps, launches per
-forward, kernels against plain).
+forward, kernels against plain), and the engines (wall times, launches
+against the forwards, float32 kernels against float32 plain, SenseVoice's
+tags; the full-width SenseVoice's ms and 50 dwconv a forward; whisper's
+ms at 64 steps and its ids against the CPU's; CAM++'s ms and cosines).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -385,6 +393,12 @@ DWCONV_SHAPES = (  # (name, B, T, K, m, C, dilation, pad_l, pad_r, types) on the
     ("separator conv1", 2, 20224, 39, 2, 256, 2, 38, 38, ("float32", "bfloat16")),
     ("SAN-M memory, 60 s rung", 1, 1000, 11, 1, 256, 1, 5, 5, ("float32", "bfloat16")),
     ("VAD memory, 30 s rung", 1, 2998, 13, 1, 64, 1, 10, 2, ("float32", "bfloat16")),
+    # SenseVoice's SAN-M memory over T + 4 rows (its 4 tag rows): the full
+    # width (D 512, 50 layers) at the 30 s rung, and sv-bootstrap (D 192,
+    # 6 layers) at the 16 s rung; both engines' stream is float32 there
+    ("SenseVoice memory, full width, 30 s rung", 1, 504, 11, 1, 512, 1, 5, 5,
+     ("float32", "bfloat16")),
+    ("SenseVoice memory, sv-bootstrap, 16 s rung", 1, 271, 11, 1, 192, 1, 5, 5, ("float32",)),
     # Apollo's ConvActNorm, float32 only: in FusedSeparation 4 clips give 8
     # streams x 80 bands at the clip rung's STFT frames, 96 channels (the
     # 160k rung is the largest; infer's call a runs at the 64k rung); in
@@ -1261,13 +1275,13 @@ class PathCounter:
     Apollo's depthwise convs, and kernel launches per trace span (by the
     trace module's hooks), between `start` and `stop`."""
 
-    def __init__(self, td):
+    def __init__(self, td, asr_name: str = "paraformer"):
         from targetdiarization_tpu_torch.models.restoration import DepthwiseConv1d
         from targetdiarization_tpu_torch.runtime import trace
 
         self.trace = trace
         self.models = {"separator": td.ap.separator.model, "apollo": td.ap.restorer.model,
-                       "vad": td.tasr.asrp.vad.model, "paraformer": td.tasr.asrp.asr.model}
+                       "vad": td.tasr.asrp.vad.model, asr_name: td.tasr.asrp.asr.model}
         self.per_forward = {k: dw_per_forward(m) for k, m in self.models.items()}
         self.apollo_convs = [m for m in self.models["apollo"].modules()
                              if isinstance(m, DepthwiseConv1d)]
@@ -1848,22 +1862,18 @@ def check_stream(seconds: float = 20.0, device: str = "cuda") -> dict:
     model.async_flush = True
     unrecord(model)
 
-    # s4 on the main path: four sessions at once, paced at real time; then
-    # the same with each session's flushes on its own thread of intake
+    # s4 on the main path: four sessions at once, paced at real time (one
+    # repetition, async flushes, so the whole run keeps inside 450 s)
     inputs = [audio] + [dialogue(seconds, seed=s, overlap=True) for s in STREAM_SEEDS[1:]]
-    for phase, async_flush in (("stream_s4", True), ("stream_s4_sync", False)):
-        model.async_flush = async_flush
-        before = mb_stats(model)
-        runs, _, wall = concurrent_sessions(model, inputs, enroll)
-        emit(phase, path=f"bf16 kernels, {'async' if async_flush else 'sync'} flushes, "
-             "4 sessions paced at real time", wall_s=wall,
-             microbatch=mb_delta(mb_stats(model), before),
-             intake_ms_p50=pct_ms([x for r in runs for x in r["intake_s"]], 50),
-             intake_ms_p99=pct_ms([x for r in runs for x in r["intake_s"]], 99),
-             emission_ms_p50=pct_ms([x for r in runs for x in r["emission_s"]], 50),
-             emission_ms_p99=pct_ms([x for r in runs for x in r["emission_s"]], 99),
-             segments=[len(r["results"]) for r in runs])
-    model.async_flush = True
+    before = mb_stats(model)
+    runs, _, wall = concurrent_sessions(model, inputs, enroll)
+    emit("stream_s4", path="bf16 kernels, async flushes, 4 sessions paced at real time",
+         wall_s=wall, microbatch=mb_delta(mb_stats(model), before),
+         intake_ms_p50=pct_ms([x for r in runs for x in r["intake_s"]], 50),
+         intake_ms_p99=pct_ms([x for r in runs for x in r["intake_s"]], 99),
+         emission_ms_p50=pct_ms([x for r in runs for x in r["emission_s"]], 50),
+         emission_ms_p99=pct_ms([x for r in runs for x in r["emission_s"]], 99),
+         segments=[len(r["results"]) for r in runs])
     bf16_s1 = s1
     del model, counter
 
@@ -2090,6 +2100,387 @@ def check_surface(device: str = "cuda") -> dict:
     return launches
 
 
+# ---------------- the engines: SenseVoice, whisper and CAM++ through build_model ----------------
+
+
+ENGINE_SETTINGS = {"ASR_ENGINE": "sensevoice",
+                   "EMBEDDING_MODEL": os.path.join(ROOT, "checkpoints", "campp-bootstrap")}
+WHISPER_TIE = 1e-3  # a CPU top-two margin under which the card may take the other id
+
+
+def load_engines(compute_dtype: str | None = None, device: str = "cuda"):
+    """`build_model()` as a user selects SenseVoice and CAM++: ASR_ENGINE and
+    EMBEDDING_MODEL in the environment, in the card's types unless
+    `compute_dtype`."""
+    from unittest import mock
+
+    from targetdiarization_tpu_torch.serve.server import build_model
+
+    env = dict(ENGINE_SETTINGS, **({"TD_COMPUTE_DTYPE": compute_dtype} if compute_dtype else {}))
+    with mock.patch.dict(os.environ, env):
+        return build_model(device=device)
+
+
+def seeded_sensevoice(device: str = "cuda", seed: int = 5):
+    """SenseVoice at its class defaults (dim 512, ffn 2048, 50 SAN-M layers,
+    vocab 21001: the SenseVoice-Small geometry), its weights drawn on
+    `device` from a seeded generator: Linear weights N(0, 1/fan_in), the
+    memories' taps N(0, 1/11), LayerNorm scales 1 + N(0, 0.01), biases and
+    the tag rows N(0, 0.02^2)."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.asr import SenseVoice
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        model = SenseVoice()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("fsmn"):
+                p.normal_(0.0, 11 ** -0.5, generator=gen)
+            elif p.dim() == 2 and name != "tag_queries":
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif ".ln" in name or name.startswith("encoder.out_ln"):
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.1, generator=gen)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model.eval()
+
+
+def write_whisper_checkpoint(path: str, seed: int = 3) -> dict:
+    """A WhisperStyleASR checkpoint at the class defaults (dim 256, ffn 1024,
+    6 + 4 layers, 224 positions) under `path`: seeded numpy float32 weights
+    in the JAX package's layout (`params.npz`), `model.json` and
+    asr-bootstrap's `vocab.txt`. Returns the torch state dict it holds."""
+    import shutil
+
+    import torch
+
+    from targetdiarization_tpu_torch.models.whisper_style import WhisperStyleASR
+
+    rng = np.random.default_rng(seed)
+    state, flat = {}, {}
+    for name, p in WhisperStyleASR().state_dict().items():
+        parts = name.split(".")
+        keys = []  # the JAX names: a list entry's index joins its list's name
+        for part in parts[:-1]:
+            if part.isdigit():
+                keys[-1] += f"_{part}"
+            else:
+                keys.append(part)
+        leaf, module = parts[-1], keys[-1] if keys else name
+        shape = tuple(p.shape)
+        if leaf == "bias":
+            v = 0.02 * rng.standard_normal(shape)
+        elif "ln" in module:
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif module == "tok_embed":
+            v = rng.standard_normal(shape)
+        elif module == "dec_pos":
+            v = 0.1 * rng.standard_normal(shape)
+        else:  # Linear (out, in) and Conv1d (out, in, k) weights
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        v = v.astype(np.float32)
+        state[name] = torch.from_numpy(v)
+        if module == "dec_pos":
+            flat["params/dec_pos"] = v
+            continue
+        if module in ("query", "key", "value"):  # (h*hd, dim) -> (dim, h, hd); 4 heads
+            v = v.T.reshape(v.shape[1], 4, -1) if leaf == "weight" else v.reshape(4, -1)
+        elif module == "out" and leaf == "weight":  # (dim, h*hd) -> (h, hd, dim)
+            v = v.T.reshape(4, -1, v.shape[0])
+        elif module in ("conv1", "conv2") and leaf == "weight":
+            v = v.transpose(2, 1, 0)
+        elif leaf == "weight" and module not in ("tok_embed",) and "ln" not in module:
+            v = v.T
+        if leaf == "weight":
+            leaf = "embedding" if module == "tok_embed" else "scale" if "ln" in module \
+                else "kernel"
+        flat["/".join(["params", *keys, leaf])] = np.ascontiguousarray(v)
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "params.npz"), **flat)
+    with open(os.path.join(path, "model.json"), "w") as f:
+        json.dump({"model_name": "WhisperStyleASR", "model_args": {}}, f)
+    shutil.copy(os.path.join(ROOT, "checkpoints", "asr-bootstrap", "vocab.txt"), path)
+    return state
+
+
+def greedy_with_margins(eng, batch: np.ndarray, n_frames: list) -> tuple[np.ndarray, np.ndarray]:
+    """The engine's greedy loop, step by step, with each step's top-two
+    logit margin per row: (ids, margins), both (rows, max_decode)."""
+    import torch
+
+    eos = eng.tokenizer.eos_id
+    with torch.inference_mode():
+        enc, enc_mask = eng.encode(batch, n_frames)
+        toks = torch.full((enc.shape[0], 1), eng.tokenizer.sos_id, dtype=torch.long,
+                          device=enc.device)
+        done = torch.zeros(enc.shape[0], dtype=torch.bool, device=enc.device)
+        margins = []
+        for _ in range(eng.max_decode):
+            logits = eng.model.decode(toks, enc, enc_mask, last_only=True)
+            top2 = torch.topk(logits, 2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            nxt = torch.where(done, eos, torch.argmax(logits, dim=-1))
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
+            done = done | (nxt == eos)
+    return toks[:, 1:].cpu().numpy(), np.stack(margins, axis=1)
+
+
+def engines_system(device: str) -> dict:
+    """`build_model()` with SenseVoice and CAM++ on `infer` (a) and one
+    unpaced `infer_stream` session of (a)'s twenty 1 s chunks: bf16 (the
+    main path, counted), float32 kernels against float32 plain."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.speaker import CAMPlusPlus
+
+    calls, enroll = infer_inputs()
+    name = "a: overlapped dialogue 20 s"
+    audio = calls[name][0]
+    audio_s = len(audio) / SR
+    t = time.time()
+    td = load_engines(device=device)
+    asr, spk = td.tasr.asrp.asr, td.tasr.spk
+    emit("engines_load", load_s=time.time() - t, settings={k: os.path.relpath(v, ROOT)
+                                                          if os.path.isabs(v) else v
+                                                          for k, v in ENGINE_SETTINGS.items()},
+         asr=type(asr.model).__name__, asr_dtype=str(asr.compute_dtype),
+         speaker=type(spk.model).__name__, speaker_dtype=str(spk.compute_dtype),
+         sensevoice_layers=len(asr.model.encoder.blocks), fused_asr=td.fused_asr is not None)
+    if not (asr.engine == "sensevoice" and isinstance(spk.model, CAMPlusPlus)
+            and asr.compute_dtype == torch.bfloat16 and td.fused_asr is None):
+        raise AssertionError("build_model did not load SenseVoice and CAM++ in bf16")
+    counter = PathCounter(td, asr_name="sensevoice")
+    per, layers = counter.per_forward, len(td.ap.separator.model.mask_net.layers)
+    if per["sensevoice"] != len(asr.model.encoder.blocks):
+        raise AssertionError(f"SenseVoice holds {per['sensevoice']} memory convs, want one a layer")
+    seen = record_target_pieces(td)
+    td.infer(audio, enroll)  # warm-up: the rungs' cuDNN, cuFFT and cuBLAS set-up
+    counter.start()
+    out, wall = timed(lambda: td.infer(audio, enroll))
+    infer_launches = counter.stop()
+    fw = dict(counter.forwards)
+    main = infer_summary(out, seen["pieces"])
+    emit("engines_infer", path="bf16 kernels", call=name, audio_s=audio_s, wall_s=wall,
+         rtfx=audio_s / wall, target_spk=out[0], entries=main["entries"], forwards=fw,
+         launches=infer_launches)
+    want = {"ffconvm": 5 * layers * fw["separator"], "flash_gated": layers * fw["separator"],
+            "flash_group": 0, "dwconv": sum(per[k] * fw[k] for k in fw)}
+    if infer_launches != want or not fw["sensevoice"] or not fw["separator"] or not out[1]:
+        raise AssertionError(f"infer with SenseVoice: launches {infer_launches}, want {want} "
+                             f"from forwards {fw}, results {out[1]}")
+    rec = record_session(td)
+    counter.start()
+    s1 = stream_session(td, audio, enroll)
+    stream_launches = counter.stop()
+    fw_s = dict(counter.forwards)
+    unrecord(td)
+    emit("engines_stream", path="bf16 kernels, async flushes",
+         **session_summary(s1, audio_s, rec["flushes"]), forwards=fw_s,
+         launches=stream_launches, results=s1["results"])
+    if not s1["results"] or not fw_s["sensevoice"] or stream_launches["dwconv"] < \
+            per["sensevoice"] * fw_s["sensevoice"] or not stream_launches["ffconvm"]:
+        raise AssertionError(f"infer_stream with SenseVoice: {stream_launches}, {fw_s}, "
+                             f"{s1['results']}")
+    data = asr_inputs()
+    tags = asr.asr_detection_batch(data["utts"])
+    emit("engines_tags", texts=data["texts"], results=tags,
+         cer_vs_rendered_text=[cer(t, r["text"]) for t, r in zip(data["texts"], tags)])
+    if not all({"language", "emotion", "event"} <= set(r) for r in tags):
+        raise AssertionError(f"SenseVoice gave no tags: {tags}")
+    main_launches = {k: infer_launches[k] + stream_launches[k] for k in infer_launches}
+    bf16_s1 = s1
+    del td, counter
+
+    # float32: kernels against plain on infer (a) and the session
+    td32 = load_engines("float32", device=device)
+    seen = record_target_pieces(td32)
+    kern = infer_summary(td32.infer(audio, enroll), seen["pieces"])
+    with plain_kernels():
+        plain = infer_summary(td32.infer(audio, enroll), seen["pieces"])
+    f32, bf16 = infer_agreement(kern, plain), infer_agreement(main, plain)
+    rec = record_session(td32)
+    k_run = stream_session(td32, audio, enroll)
+    k_flushes = list(rec["flushes"])
+    rec["flushes"].clear()
+    with plain_kernels():
+        p_run = stream_session(td32, audio, enroll)
+    p_flushes = list(rec["flushes"])
+    unrecord(td32)
+    s_f32 = session_agreement(k_run, p_run, k_flushes, p_flushes)
+    emit("engines_agreement", infer_f32_kernels_vs_f32_plain=f32,
+         infer_bf16_kernels_vs_f32_plain=bf16, stream_f32_kernels_vs_f32_plain=s_f32,
+         f32_plain_entries=plain["entries"], stream_bf16_results=bf16_s1["results"],
+         stream_f32_plain_results=p_run["results"])
+    # the limits of check_infer and check_stream: where the separator ran, a
+    # stream one int16 step apart can flip an argmax, so CER <= 0.03 there
+    texts_ok = f32["texts_equal"] or f32["cer"] <= 0.03
+    if not (f32["target_spk_equal"] and f32["speakers_equal"] and f32["entries_equal"]
+            and texts_ok and f32["timerange_max_gap_s"] <= 0.01):
+        raise AssertionError(f"infer with SenseVoice: float32 kernels vs float32 plain: {f32}")
+    if not within_s1_limits(s_f32):
+        raise AssertionError(f"infer_stream with SenseVoice: float32 kernels vs plain: {s_f32}")
+    if not (bf16["target_spk_equal"] and bf16["speakers_equal"] and main["entries"]):
+        raise AssertionError(f"infer with SenseVoice: bf16 vs float32 plain: {bf16}")
+    del td32
+    return main_launches
+
+
+def engines_sensevoice(device: str) -> dict:
+    """SenseVoice at full width with seeded weights on the card: one
+    asr_detection_batch of the ASR phase's utterances and one 30 s clip,
+    counted (50 dwconv a forward); kernels against plain on the same."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.asr import LFR_N, ASREngine
+    from targetdiarization_tpu_torch.models.features import num_frames
+
+    t = time.time()
+    eng = ASREngine(seeded_sensevoice(device), device=device, compute_dtype="float32")
+    data = asr_inputs()
+    clip = data["long"][: 30 * SR]
+    n_params = sum(p.numel() for p in eng.model.parameters())
+
+    def run():
+        return eng.asr_detection_batch(data["utts"]), eng.asr_detection(clip)[0]
+
+    run()  # warm-up
+    forwards = [0]
+    hook = eng.model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    reset_launches()
+    (batch, long), wall = timed(run)
+    launches = read_launches()
+    hook.remove()
+    _, batch_s = timed(lambda: eng.asr_detection_batch(data["utts"]))
+    _, clip_s = timed(lambda: eng.asr_detection(clip))
+    padded = clip[None]
+    t_lfr = [-(-num_frames(len(clip)) // LFR_N)]
+    with torch.inference_mode():
+        logits_k = eng.forward_device(padded, t_lfr)["ctc_logits"]
+        ids_k = eng._dispatch(padded, t_lfr)
+        with plain_kernels():
+            logits_p = eng.forward_device(padded, t_lfr)["ctc_logits"]
+            ids_p = eng._dispatch(padded, t_lfr)
+            batch_p, long_p = run()
+    err, rel = rel_err(logits_k, logits_p)
+    same_ids = all(np.array_equal(ids_k[k], ids_p[k]) for k in ids_k)
+    per_forward = launches["dwconv"] / max(forwards[0], 1)
+    emit("engines_sensevoice_full", path="float32 kernels", params=n_params,
+         layers=len(eng.model.encoder.blocks), dim=eng.model.encoder.dim, load_s=time.time() - t,
+         forwards=forwards[0], launches=launches, dwconv_per_forward=per_forward,
+         wall_s=wall, batch_ms=batch_s * 1e3, clip_30s_ms=clip_s * 1e3,
+         memory_rows=t_lfr[0] + 4, ctc_logits_max_abs_err=err, ctc_logits_rel_err=rel,
+         ctc_ids_equal=same_ids, results_equal=(batch, long) == (batch_p, long_p),
+         texts=[r["text"][:12] for r in batch])
+    if per_forward != 50 or launches["ffconvm"] or launches["flash_gated"] or not forwards[0]:
+        raise AssertionError(f"full-width SenseVoice: launches {launches} for {forwards[0]} "
+                             "forwards, want 50 dwconv a forward")
+    if not (same_ids and (batch, long) == (batch_p, long_p) and rel <= TOL["float32"]):
+        raise AssertionError(f"full-width SenseVoice: kernels vs plain: ids equal {same_ids}, "
+                             f"rel err {rel:.3g}")
+    del eng, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def engines_whisper(device: str) -> None:
+    """Whisper at its class defaults from a seeded checkpoint, loaded as a
+    user would (ASRProcessor, asr_engine="whisper_v3"): the card's float32
+    greedy ids against the port's on the CPU."""
+    import tempfile
+
+    import torch
+
+    from targetdiarization_tpu_torch.models.features import num_frames
+    from targetdiarization_tpu_torch.models.whisper_style import _SAMPLE_LADDER, WhisperStyleEngine
+    from targetdiarization_tpu_torch.ops.kernels._build import BUILD_DIR
+    from targetdiarization_tpu_torch.processors.asr import ASRProcessor
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    data = asr_inputs()
+    bucket = max(_SAMPLE_LADDER.bucket(len(u)) for u in data["utts"])
+    batch = np.stack([np.pad(u, (0, bucket - len(u))) for u in data["utts"]])
+    frames = [num_frames(len(u)) for u in data["utts"]]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as path:
+        state = write_whisper_checkpoint(path)
+        kw = {"asr_model": path, "asr_engine": "whisper_v3", "compute_dtype": "float32"}
+        card, cpu = ASRProcessor(**kw, device=device), ASRProcessor(**kw, device="cpu")
+    if not isinstance(card.asr, WhisperStyleEngine) or any(
+            not torch.equal(cpu.asr.model.state_dict()[k], v) for k, v in state.items()):
+        raise AssertionError("the whisper checkpoint did not load as written")
+    reset_launches()
+    ids = card.asr.greedy(batch, frames)
+    launches = read_launches()
+    ids_cpu, margins = greedy_with_margins(cpu.asr, batch, frames)
+    if not np.array_equal(ids_cpu, cpu.asr.greedy(batch, frames)):
+        raise AssertionError("the CPU's stepped greedy loop is not the engine's")
+    firsts = []
+    for row in range(len(ids)):
+        diff = np.flatnonzero(ids[row] != ids_cpu[row])
+        firsts.append(None if not diff.size else
+                      {"row": row, "step": int(diff[0]),
+                       "cpu_top2_margin": float(margins[row, diff[0]])})
+    one = data["utts"][0]
+    card.asr_detection(one)
+    _, call_s = timed(lambda: card.asr_detection(one))
+    emit("engines_whisper", path="float32, no kernel of the port (attention, LayerNorm, convs "
+         "and GEMMs in plain torch)", geometry={"dim": 256, "ffn": 1024, "enc_layers": 6,
+                                                "dec_layers": 4, "max_tokens": 224},
+         steps=card.asr.max_decode, ms_per_call=call_s * 1e3, launches=launches,
+         ids_equal=bool(np.array_equal(ids, ids_cpu)), first_differences=firsts,
+         min_cpu_margin=float(margins.min()), eos_rows=int((ids == card.asr.tokenizer.eos_id)
+                                                           .any(axis=1).sum()))
+    if any(launches.values()):
+        raise AssertionError(f"whisper launched a kernel: {launches}")
+    if any(f is not None and f["cpu_top2_margin"] >= WHISPER_TIE for f in firsts):
+        raise AssertionError(f"whisper: card ids part from the CPU's outside a near tie: {firsts}")
+
+
+def engines_campp(device: str) -> None:
+    """CAM++ (`campp-bootstrap`) on the card: the 8 s enrollment and the 46 s
+    conversation's 1.5 s windows (hop 0.75 s), float32 against the port on
+    the CPU and bf16 against float32."""
+    from targetdiarization_tpu_torch.models.speaker import SpeakerEngine
+
+    path = ENGINE_SETTINGS["EMBEDDING_MODEL"]
+    conv, clip = conversation(46.0, seed=8), enrollment(8.0, seed=9)
+    wins = [conv[i: i + 3 * SR // 2] for i in range(0, len(conv) - 3 * SR // 2 + 1, 3 * SR // 4)]
+    engines = {name: SpeakerEngine.from_pretrained(path, device=dev, compute_dtype=dt)
+               for name, dev, dt in (("bf16", device, None), ("f32", device, "float32"),
+                                     ("cpu", "cpu", "float32"))}
+    out, ms = {}, {}
+    for name, eng in engines.items():
+        eng.embed_batch(wins[:2])  # warm-up
+        out[name], wall = timed(lambda: (eng.embed_batch(wins), eng.get_speaker_embedding(clip)))
+        ms[name] = wall * 1e3
+    cos_cpu = min(cosines(out["f32"][0], out["cpu"][0]).min(),
+                  cosines(out["f32"][1], out["cpu"][1]).min())
+    cos_bf16 = min(cosines(out["bf16"][0], out["f32"][0]).min(),
+                   cosines(out["bf16"][1], out["f32"][1]).min())
+    emit("engines_campp", windows=len(wins), enrollment_s=len(clip) / SR,
+         ms={"bf16 card": ms["bf16"], "f32 card": ms["f32"], "f32 cpu": ms["cpu"]},
+         min_cos_f32_card_vs_cpu=float(cos_cpu), min_cos_bf16_vs_f32=float(cos_bf16))
+    if not (cos_cpu >= 0.9999 and cos_bf16 >= 0.95):
+        raise AssertionError(f"CAM++: card f32 vs CPU {cos_cpu:.6f}, bf16 vs f32 {cos_bf16:.4f}")
+
+
+def check_engines(device: str = "cuda") -> dict:
+    """The engines a user selects with ASR_ENGINE and EMBEDDING_MODEL: the
+    system with SenseVoice and CAM++, SenseVoice at full width, whisper at
+    its class defaults, CAM++ against the CPU. Returns the main path's
+    launches: the bf16 system's `infer` and session and the full-width
+    SenseVoice calls."""
+    import torch
+
+    system = engines_system(device)
+    full = engines_sensevoice(device)
+    engines_whisper(device)
+    engines_campp(device)
+    torch.cuda.synchronize()
+    return {k: system[k] + full[k] for k in system}
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -2135,6 +2526,10 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
                                  "device_ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "library_device_ms")}
               for r in rows["dwconv"] if r["shape"].startswith("Apollo")]
+    sensevoice = [{k: r[k] for k in ("shape", "dtype", "B", "T", "K", "C", "max_abs_err", "ms",
+                                     "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_device_ms")}
+                  for r in rows["dwconv"] if r["shape"].startswith("SenseVoice")]
     return {"kernels": [
         entry("ffconvm", "targetdiarization_tpu_torch/csrc/ffconvm.cu",
               "targetdiarization_tpu/ops/pallas/ffconvm.py:117", "ffconvm",
@@ -2147,7 +2542,7 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
               "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
               lambda r: per_layer.get(r["shape"], 0) if r["dtype"] == "float32" else 0,
               "float32", pair + " (FSMN conv0 + conv1; float32 FMA work)", "float32")
-        | {"apollo_shapes": apollo},
+        | {"apollo_shapes": apollo, "sensevoice_shapes": sensevoice},
         entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group",
               lambda r: r["dtype"] == "bfloat16", "bfloat16",
@@ -2168,7 +2563,7 @@ def main() -> None:
                      "FusedFrontend": check_frontend(),
                      "TargetDiarization.infer": check_infer(),
                      "TargetDiarizationStream.infer_stream": check_stream(),
-                     "surface": check_surface()}
+                     "surface": check_surface(), "engines": check_engines()}
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

@@ -1,14 +1,18 @@
-"""Paraformer ASR: SAN-M encoder, CIF predictor, SAN-M decoder, and its engine.
+"""Paraformer and SenseVoice ASR, and their engine.
 
-Counterpart of the Paraformer part of targetdiarization_tpu/models/asr.py.
+Counterpart of targetdiarization_tpu/models/asr.py. The Paraformer is a
+SAN-M encoder, a CIF predictor and a SAN-M decoder; SenseVoice is the
+same SAN-M encoder over 4 learned tag rows and the LFR frames, with a CTC
+head on the frames and language, emotion and event heads on the tag rows.
 The encoder's and decoder's SAN-M blocks are multi-head attention plus,
 in self-attention only, a depthwise FSMN memory on the masked values
 (`ops.dwconv`, 11 taps, SAME), added before the output projection. The
 CIF predictor integrates frame weights in float32 with the JAX package's
 closed form (`cif_fire`), including the 0.45 tail frame at speech end.
 The decoder runs once over all token slots and the engine takes the
-argmax on the device before the copy to the host. The scanned layer
-stacks of the JAX model are `nn.ModuleList`s here.
+argmax on the device before the copy to the host (for SenseVoice, of the
+CTC and tag logits; the CTC ids are collapsed on the host). The scanned
+layer stacks of the JAX model are `nn.ModuleList`s here.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import bisect
 import math
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -226,6 +231,71 @@ class Paraformer(nn.Module):
                 "alphas": alphas, "encoder_out": enc}
 
 
+class SenseVoice(nn.Module):
+    """Encoder-only CTC ASR with a rich-tag prefix: the 4 rows of
+    `tag_queries` go ahead of the (CMVN'd) LFR features and the mask is
+    extended by ones, so every SAN-M memory runs over T + 4 rows; the
+    first three encoded rows feed the language, emotion and event heads,
+    the rest the CTC head."""
+
+    def __init__(self, vocab_size: int = 21001, dim: int = 512, heads: int = 4,
+                 ffn: int = 2048, enc_layers: int = 50, n_lang: int = 8, n_emotion: int = 8,
+                 n_event: int = 8):
+        super().__init__()
+        self.tag_queries = nn.Parameter(torch.zeros(4, 80 * LFR_M))
+        self.encoder = SANMEncoder(dim, heads, ffn, enc_layers)
+        self.ctc = nn.Linear(dim, vocab_size)
+        self.lang_head = nn.Linear(dim, n_lang)
+        self.emotion_head = nn.Linear(dim, n_emotion)
+        self.event_head = nn.Linear(dim, n_event)
+
+    def forward(self, feats, mask) -> dict:
+        """feats (B, T, 560), mask (B, T) -> ctc_logits (B, T, V) and the
+        lang, emotion and event logits (B, n)."""
+        b = feats.shape[0]
+        prefix = self.tag_queries.to(feats.dtype)[None].expand(b, -1, -1)
+        feats = torch.cat([prefix, feats], dim=1)
+        mask = torch.cat([torch.ones(b, 4, dtype=mask.dtype, device=mask.device), mask], dim=1)
+        enc = self.encoder(feats, mask)
+        tags = enc[:, :4]
+        return {"ctc_logits": self.ctc(enc[:, 4:]), "lang_logits": self.lang_head(tags[:, 0]),
+                "emotion_logits": self.emotion_head(tags[:, 1]),
+                "event_logits": self.event_head(tags[:, 2])}
+
+
+LANGS = ["zh", "en", "yue", "ja", "ko", "nospeech", "auto", "other"]
+EMOTIONS = ["NEUTRAL", "HAPPY", "ANGRY", "SAD", "FEARFUL", "DISGUSTED", "SURPRISED", "UNKNOWN"]
+EVENTS = ["Speech", "BGM", "Applause", "Laughter", "Cough", "Sneeze", "Breath", "Cry"]
+
+
+def ctc_greedy(ids, blank_id: int) -> list:
+    """Repeats collapsed, then blanks removed."""
+    out, prev = [], -1
+    for i in ids:
+        i = int(i)
+        if i != prev and i != blank_id:
+            out.append(i)
+        prev = i
+    return out
+
+
+@dataclass
+class ASRResult:
+    text: str
+    timestamp: list  # [[start_ms, end_ms], ...] a character (Paraformer)
+    raw_text: str = ""
+    language: str = ""
+    emotion: str = ""
+    event: str = ""
+
+    def to_dict(self) -> dict:
+        d = {"text": self.text, "timestamp": self.timestamp}
+        for key in ("raw_text", "language", "emotion", "event"):
+            if getattr(self, key):
+                d[key] = getattr(self, key)
+        return d
+
+
 # ---------------- engine ----------------
 
 _SAMPLE_LADDER = BucketLadder(tuple(int(s * SR) for s in (1, 2, 4, 8, 16, 30, 60)))
@@ -245,17 +315,21 @@ def fire_frames_to_timestamps(fire_frames, total_frames: int) -> list:
 
 
 class ASREngine:
-    """Bucketed Paraformer with the reference's result contract:
-    [{"text": ..., "timestamp": [[start_ms, end_ms], ...]}]. One synchronous
+    """Bucketed Paraformer or SenseVoice (`engine` says which) with the
+    reference's result contract: [{"text": ..., "timestamp": [[start_ms,
+    end_ms], ...]}], for SenseVoice with no timestamps and with
+    "raw_text" (<|lang|><|emotion|><|event|>text), "language", "emotion"
+    and "event". One synchronous
     forward per call (per sample rung for a batch; concurrent callers'
     single utterances at one rung share one forward of ROW_LADDER rows,
     `_run_mb`); audio goes up as int16
     and fbank + LFR + CMVN run on the device in float32. In a reduced
     compute type only `in_proj` computes in it (`promote_after`)."""
 
-    def __init__(self, model: Paraformer, tokenizer: CharTokenizer | None = None, cmvn=None,
+    def __init__(self, model: Paraformer | SenseVoice, tokenizer: CharTokenizer | None = None, cmvn=None,
                  device: str | torch.device = "cuda", compute_dtype: str | None = None):
         self.device = torch.device(device)
+        self.engine = "sensevoice" if isinstance(model, SenseVoice) else "paraformer"
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         self.model = promote_after(model.to(self.device), model.encoder.in_proj,
                                    self.compute_dtype).eval()
@@ -310,18 +384,31 @@ class ASREngine:
         t = feats.shape[1]
         n = torch.tensor(ts, device=self.device)
         mask = (torch.arange(t, device=self.device)[None, :] < n[:, None]).to(self.compute_dtype)
-        if target_len is not None:
-            target_len = torch.tensor(target_len, device=self.device, dtype=torch.float32)
+        if target_len is None:
+            return self.model(feats.to(self.compute_dtype), mask)
+        target_len = torch.tensor(target_len, device=self.device, dtype=torch.float32)
         return self.model(feats.to(self.compute_dtype), mask, target_len)
 
     def _dispatch(self, batch: np.ndarray, ts: list) -> dict:
         with torch.inference_mode():
             out = self.forward_device(batch, ts)
+            if self.engine == "sensevoice":
+                heads = {"ctc_ids": "ctc_logits", "lang_id": "lang_logits",
+                         "emotion_id": "emotion_logits", "event_id": "event_logits"}
+                return {k: torch.argmax(out[v], dim=-1).cpu().numpy() for k, v in heads.items()}
             ids = torch.argmax(out["logits"], dim=-1)
             return {"ids": ids.cpu().numpy(), "n_tokens": out["n_tokens"].cpu().numpy(),
                     "fire_frames": out["fire_frames"].cpu().numpy()}
 
     def _decode_row(self, out: dict, row: int, t: int) -> dict:
+        if self.engine == "sensevoice":
+            text = self.tokenizer.decode(ctc_greedy(out["ctc_ids"][row, :t],
+                                                    self.tokenizer.blank_id))
+            lang, emo, ev = (LANGS[int(out["lang_id"][row])],
+                             EMOTIONS[int(out["emotion_id"][row])],
+                             EVENTS[int(out["event_id"][row])])
+            return ASRResult(text=text, timestamp=[], raw_text=f"<|{lang}|><|{emo}|><|{ev}|>{text}",
+                             language=lang, emotion=emo, event=ev).to_dict()
         n_tok = int(out["n_tokens"][row])
         fire_frames = out["fire_frames"][row, :n_tok]
         ids = out["ids"][row, :n_tok] if n_tok else np.zeros(0, np.int64)
@@ -336,8 +423,9 @@ class ASREngine:
         alignment: the alphas scaled so that n_tokens fire (at most one per
         LFR frame). Audio past the top rung (60 s) is dropped. Fewer
         entries come back where the scaled alphas' float32 sum lands short
-        of the last token's threshold."""
-        if n_tokens <= 0:
+        of the last token's threshold; none from SenseVoice, which has no
+        CIF."""
+        if self.engine != "paraformer" or n_tokens <= 0:
             return []
         audio = np.asarray(audio, np.float32)
         if sr != SR:

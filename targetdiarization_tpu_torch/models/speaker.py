@@ -1,13 +1,16 @@
-"""ERes2NetV2 speaker embeddings (192-d) and the speaker engine.
+"""ERes2NetV2 and CAM++ speaker embeddings (192-d) and the speaker engine.
 
 Counterpart of targetdiarization_tpu/models/speaker.py (ERes2NetV2,
-`SpeakerEngine.embed_batch`, `get_speaker_embedding`, `is_same_person`,
-`get_target_embedding`, `cosine_similarity`). The network is NCHW over (B, C, T, F): the JAX
-model's NHWC image (B, T, F, C) with the channels moved, so (T, F) stay
-(H, W); before pooling the maps go back to (B, T', F', C) and flatten to
-(B, T', F'·C) as in the JAX model. BatchNorm runs on the checkpoint's
-running statistics (flax's epsilon 1e-5), the AFF gate's GroupNorm per
-channel (epsilon 1e-6).
+CAMPlusPlus, `SpeakerEngine.embed_batch`, `get_speaker_embedding`,
+`is_same_person`, `get_target_embedding`, `cosine_similarity`). The 2-D
+convolutions are NCHW over (B, C, T, F): the JAX model's NHWC image
+(B, T, F, C) with the channels moved, so (T, F) stay (H, W); before
+pooling the maps go back to (B, T', F', C) and flatten to (B, T', F'·C)
+as in the JAX model. CAM++'s TDNN part is channels-last (B, T, C) as in
+the JAX model. BatchNorm runs on the checkpoint's running statistics
+(flax's epsilon 1e-5), the AFF gate's GroupNorm per channel (epsilon
+1e-6). The engine takes either network (the checkpoint's `model_name`
+picks it) and calls it the same way.
 
 In the JAX package's bf16 mode the float32 time mask multiplies the bf16
 input at once, so the network computes in float32 from bf16-rounded
@@ -18,7 +21,7 @@ the engine does the same (its BatchNorms keep the compute type).
 `get_target_embedding` clusters per-segment embeddings with the port's
 HDBSCAN (`models/clustering.py`), not sklearn's: the JAX package falls
 back to one cluster where sklearn is missing, the port computes what it
-computes with sklearn. CAMPlusPlus is not ported.
+computes with sklearn.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.conv import Conv2dSame
+from ..ops.conv import Conv1dSame, Conv2dSame
 from ..ops.kernels import prepare_kernels
 from ..runtime.buckets import BucketLadder, pad_to
 from ..runtime.precision import (dequantize_audio, exact_float32, promote_after, quantize_i16,
@@ -48,20 +51,24 @@ def time_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """flax BatchNorm with running averages over the channel axis of NCHW
-    maps: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    """flax BatchNorm with running averages over the channel axis `axis`
+    (1 for NCHW maps, -1 for channels-last):
+    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
 
-    def __init__(self, channels: int, eps: float = BN_EPS):
+    def __init__(self, channels: int, eps: float = BN_EPS, axis: int = 1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.axis = eps, axis
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        shape = [1] * x.dim()
+        shape[self.axis] = -1
+
         def channels(v):
-            return v[:, None, None]
+            return v.reshape(shape)
 
         # rsqrt(var + eps) is rounded to the statistics' type and the rest
         # computes in float32: what XLA's fusion of the JAX model's bf16
@@ -172,6 +179,93 @@ class ERes2NetV2(nn.Module):
         return self.embedding(self.asp(h, m2))
 
 
+class CAMLayer(nn.Module):
+    """A D-TDNN layer over (B, T, C): BN-ReLU-Linear bottleneck, BN-ReLU, a
+    3-tap dilated conv of the masked frames, a context gate from the masked
+    mean over time, and the result appended to the input's channels."""
+
+    def __init__(self, in_channels: int, bottleneck: int, growth: int, dilation: int = 1):
+        super().__init__()
+        self.bn1 = BatchNorm(in_channels, axis=-1)
+        self.bottleneck = nn.Linear(in_channels, bottleneck, bias=False)
+        self.bn2 = BatchNorm(bottleneck, axis=-1)
+        self.tdnn = Conv1dSame(bottleneck, growth, 3, dilation=dilation, bias=False)
+        self.cam_down = nn.Linear(growth, growth // 2)
+        self.cam_up = nn.Linear(growth // 2, growth)
+
+    def forward(self, x, mask):
+        m = mask[..., None]
+        h = torch.relu(self.bn2(self.bottleneck(torch.relu(self.bn1(x)))))
+        h = self.tdnn((h * m).transpose(1, 2)).transpose(1, 2)
+        ctx = (h * m).sum(dim=1, keepdim=True) / torch.clamp_min(m.sum(dim=1, keepdim=True), 1e-6)
+        h = h * torch.sigmoid(self.cam_up(torch.relu(self.cam_down(ctx))))
+        return torch.cat([x, h * m], dim=-1)
+
+
+class CAMPlusPlus(nn.Module):
+    """D-TDNN with context-aware masking over 80-d fbank: a 2-D conv front
+    end (two 3x3 convs of stride (1, 2) over (T, F), "SAME" padded, so an
+    even F is padded by (0, 1)), flattened frame by frame in the JAX
+    model's order (feature f * 32 + c), a 5-tap TDNN, three dense blocks
+    of CAMLayers with dilations 1, 2, 3, each followed by a BN-ReLU-Linear
+    transition that halves the channels, and masked mean and standard
+    deviation pooling (one pass: E[x^2] - mean^2)."""
+
+    def __init__(self, feat_dim: int = 80, init_channels: int = 128, growth: int = 32,
+                 bottleneck: int = 64, block_layers=(4, 6, 8), embed_dim: int = EMBED_DIM):
+        super().__init__()
+        self.feat_dim, self.block_layers = feat_dim, tuple(block_layers)
+        self.fcm1 = Conv2dSame(1, 32, 3, stride=(1, 2), bias=False)
+        self.fcm2 = Conv2dSame(32, 32, 3, stride=(1, 2), bias=False)
+        f = -(-feat_dim // 4)  # ceil(ceil(F / 2) / 2) frequency bins after the front end
+        self.tdnn_in = Conv1dSame(32 * f, init_channels, 5, bias=False)
+        c = init_channels
+        for bi, n_layers in enumerate(self.block_layers):
+            for li in range(n_layers):
+                self.add_module(f"block{bi}_layer{li}",
+                                CAMLayer(c, bottleneck, growth, dilation=(1, 2, 3)[bi]))
+                c += growth
+            self.add_module(f"tbn{bi}", BatchNorm(c, axis=-1))
+            self.add_module(f"transit{bi}", nn.Linear(c, c // 2, bias=False))
+            c //= 2
+        self.embedding = nn.Linear(2 * c, embed_dim)
+
+    def forward(self, feats, lengths):
+        """feats (B, T, F), lengths (B,) frames -> (B, embed_dim)."""
+        b, t, _ = feats.shape
+        mask = time_mask(lengths, t)
+        m = mask[..., None]
+        # the float32 mask promotes the stream to float32, as in the JAX model
+        x = (feats * m)[:, None]  # (B, 1, T, F)
+        x = torch.relu(self.fcm2(torch.relu(self.fcm1(x))))  # (B, 32, T, F/4)
+        x = x.permute(0, 2, 3, 1).reshape(b, t, -1)  # (B, T, F/4 * 32), index f * 32 + c
+        x = self.tdnn_in((x * m).transpose(1, 2)).transpose(1, 2)
+        for bi, n_layers in enumerate(self.block_layers):
+            for li in range(n_layers):
+                x = getattr(self, f"block{bi}_layer{li}")(x, mask)
+            x = getattr(self, f"transit{bi}")(torch.relu(getattr(self, f"tbn{bi}")(x)))
+        n = torch.clamp_min(m.sum(dim=1), 1e-6)
+        mean = (x * m).sum(dim=1) / n
+        var = (x.square() * m).sum(dim=1) / n - mean.square()
+        return self.embedding(torch.cat([mean, torch.sqrt(torch.clamp_min(var, 1e-7))], dim=-1))
+
+
+# the JAX package's SpeakerEngine presets (model_name -> class and arguments)
+MODEL_PRESETS = {
+    "eres2netv2_large": (ERes2NetV2, dict(channels=24, blocks=(2, 2, 2, 2))),
+    "eres2netv2": (ERes2NetV2, dict(channels=24, blocks=(1, 1, 1, 1))),
+    "eres2net": (ERes2NetV2, dict(channels=16, blocks=(1, 1, 1, 1))),
+    "campp": (CAMPlusPlus, {}),
+}
+
+
+def preset_model(name: str) -> nn.Module:
+    """The network of a JAX `SpeakerEngine` preset, with torch's default
+    initialisation (load a state dict into it; no engine runs it as is)."""
+    cls, args = MODEL_PRESETS[name]
+    return cls(**args)
+
+
 def cosine_similarity(e1, e2) -> float:
     """Plain cosine in [-1, 1]; 0 for a zero vector."""
     e1 = np.asarray(e1, np.float64).ravel()
@@ -185,9 +279,12 @@ def cosine_similarity(e1, e2) -> float:
 class SpeakerEngine:
     """Speaker embeddings and verification. Audio goes up as int16, one
     padded batch per sample rung (1 .. 30 s); fbank, the CMN over each
-    clip's valid frames and the forward run on the device in one pass."""
+    clip's valid frames and the forward run on the device in one pass. The
+    network is an ERes2NetV2 or a CAMPlusPlus; in a reduced compute type
+    both compute in float32 from rounded weights, their BatchNorms keeping
+    the compute type."""
 
-    def __init__(self, model: ERes2NetV2, device: str | torch.device = "cuda",
+    def __init__(self, model: nn.Module, device: str | torch.device = "cuda",
                  compute_dtype: str | None = None):
         self.device = torch.device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)

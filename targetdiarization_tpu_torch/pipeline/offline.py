@@ -13,8 +13,9 @@ speaker embedding (average-linkage AHC, `models/clustering.py`); at 30 s
 and above `ClusterDiarizer` clusters the sliding-window embeddings. The
 target's overlap clips are separated (`FusedSeparation`, with Apollo in the
 same pass), and each speaker's track is transcribed: by `FusedASR` on the
-analysed device buffer when no clip was separated, else by the batched
-ASR and punctuation of the ASR processor.
+analysed device buffer when the engine is a Paraformer and no clip was
+separated, else by the batched ASR and punctuation of the ASR processor
+(SenseVoice, whisper: one entry a speaker, with no timestamps to slice).
 
 Unlike the JAX package, an error in a fused program or an engine
 propagates: there is no per-engine fallback that hides it. The JAX
@@ -74,8 +75,10 @@ class TargetDiarization:
         self.od_pipeline = segmentation_engine
         self.fused = FusedFrontend(denoiser=self.ap.denoiser, vad=target_asr.asrp.vad,
                                    seg=segmentation_engine, spk=target_asr.spk)
+        # FusedASR runs wherever the local engine is a Paraformer, whatever
+        # `asr_engine` names, as in the JAX package
         self.fused_asr = FusedASR(target_asr.asrp.asr, target_asr.asrp.punc) \
-            if target_asr.asrp.asr is not None and asr_engine == "paraformer" else None
+            if getattr(target_asr.asrp.asr, "engine", "") == "paraformer" else None
         self._enroll_cache: dict = {}
 
     def _log(self, *args):

@@ -160,7 +160,7 @@ class TargetDiarizationStream(TargetDiarization):
                                                   np.zeros(cs, np.float32))] * nb)
                     n += 1
         asr = self.tasr.asrp.asr
-        if asr is not None:
+        if hasattr(asr, "_run_mb"):  # the Paraformer and SenseVoice engine, not whisper
             for bucket in (b for b in ASR_LADDER.rungs if b <= max(max_bucket, ASR_LADDER.rungs[0])):
                 for nb in rows_of(asr.ROW_LADDER):
                     asr._run_mb(bucket, [(np.zeros(bucket, np.int16), 16000)] * nb)

@@ -15,7 +15,9 @@ the JAX package's schema: {"timerange": [s, e], "text", "score",
 - `batch_target_speaker_asr`, `target_speaker_duration` and the streaming
   helper `mix_audio_processor`.
 `more_args` take the JAX package's keys ("vad_model", "asr_engine",
-"preprocess", "prompt", "no_punc"); a cloud `asr_engine` raises.
+"preprocess", "prompt", "no_punc"); a cloud `asr_engine` transcribes
+through `ASRProcessor.asr_detection_api`. The speaker engine is
+ERes2NetV2 or CAM++, whichever the embedding checkpoint holds.
 """
 
 from __future__ import annotations

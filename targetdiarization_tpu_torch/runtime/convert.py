@@ -9,7 +9,8 @@ subtree with a leading layer axis that the JAX model's `nn.scan` uses
 - MossFormer2: `mask_net/flash_{i}`, `mask_net/fsmn_{i}`, or
   `mask_net/layers/{flash,fsmn}`;
 - Paraformer: `encoder/block_{i}` and `dec_{i}`, or
-  `encoder/blocks/block` and `decoder_blocks/block`.
+  `encoder/blocks/block` and `decoder_blocks/block`;
+- SenseVoice: `encoder/block_{i}`, or `encoder/blocks/block`.
 
 Layout rules:
 - Dense kernel (in, out) -> Linear weight (out, in);
@@ -232,17 +233,51 @@ def segmentation_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def eres2netv2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
-    """State dict of `models.speaker.ERes2NetV2`, from a tree with both
-    `params` and `batch_stats` (the BatchNorm running statistics)."""
+def _with_batch_stats(tree: dict) -> dict:
+    """The flat `params` of a tree with `batch_stats`, the BatchNorm running
+    statistics added as .../running_mean and .../running_var."""
     flat = flatten(tree["params"])
     for key, v in flatten(tree["batch_stats"]).items():
         head, leaf = key.rsplit("/", 1)
         flat[f"{head}/{_BN_STATS[leaf]}"] = v
-    sd = _conv_rules(flat, (
+    return flat
+
+
+def eres2netv2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.speaker.ERes2NetV2`, from a tree with both
+    `params` and `batch_stats` (the BatchNorm running statistics)."""
+    sd = _conv_rules(_with_batch_stats(tree), (
         (re.compile(r"^(stage\d+_block\d+)/"), r"blocks/\1/"),
         (re.compile(r"/(conv|bn)_(\d+)/"), r"/\1/\2/"),
     ))
+    return _to_tensors(sd)
+
+
+def campp_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.speaker.CAMPlusPlus`, from a tree with both
+    `params` and `batch_stats`: the modules keep the JAX names, the FCM's
+    2-D and the TDNNs' 1-D Conv kernels take torch's layouts, and the
+    BatchNorms' statistics become their running averages."""
+    return _to_tensors(_conv_rules(_with_batch_stats(tree), ()))
+
+
+def sensevoice_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.asr.SenseVoice`, from either encoder layout
+    (`encoder/block_{i}` or the stacked `encoder/blocks/block`): the SAN-M
+    encoder's rules of `paraformer_state_dict`, the CTC and tag heads as
+    Linear layers and `tag_queries` as stored."""
+    return paraformer_state_dict(tree)
+
+
+def whisper_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `models.whisper_style.WhisperStyleASR`: the attention
+    layers' kernels as Linear layers (`_attention_rules`), the per-layer
+    encoder modules `enc_<name>_<i>` and `dec_blocks_<i>` as list entries,
+    the 1-D Conv kernels in torch's layout, `tok_embed` as an Embedding and
+    `dec_pos` as stored."""
+    flat = _attention_rules(flatten(tree.get("params", tree)),
+                            r"^(enc_attn_\d+|dec_blocks_\d+/(self|cross)_attn)/")
+    sd = _conv_rules(flat, ((re.compile(r"^(enc_[a-z0-9]+?|dec_blocks)_(\d+)/"), r"\1/\2/"),))
     return _to_tensors(sd)
 
 
@@ -273,4 +308,6 @@ CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_st
               "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict,
               "TDFUNet": tdfunet_state_dict, "SegmentationNet": segmentation_state_dict,
               "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict,
-              "FlowEnhancer": flow_enhancer_state_dict, "EmotionNet": emotion_net_state_dict}
+              "FlowEnhancer": flow_enhancer_state_dict, "EmotionNet": emotion_net_state_dict,
+              "CAMPlusPlus": campp_state_dict, "SenseVoice": sensevoice_state_dict,
+              "WhisperStyleASR": whisper_state_dict}

@@ -3,8 +3,8 @@
 Counterpart of targetdiarization_tpu/runtime/registry.py::from_pretrained:
 the checkpoint's own `model_name` picks the class. The ported models are
 MossFormer2, Paraformer, CTTransformerPunc, FsmnVADNet, TDFUNet,
-SegmentationNet, ERes2NetV2, Apollo, FlowEnhancer and EmotionNet; any
-other name raises.
+SegmentationNet, ERes2NetV2, CAMPlusPlus, Apollo, FlowEnhancer, EmotionNet,
+SenseVoice and WhisperStyleASR; any other name raises.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from .params import load_checkpoint
 
 
 def get_model_cls(name: str):
-    from ..models.asr import Paraformer
+    from ..models.asr import Paraformer, SenseVoice
     from ..models.denoise import TDFUNet
     from ..models.diarization import SegmentationNet
     from ..models.emotion import EmotionNet
@@ -24,13 +24,16 @@ def get_model_cls(name: str):
     from ..models.punctuation import CTTransformerPunc
     from ..models.restoration import Apollo
     from ..models.separation import MossFormer2
-    from ..models.speaker import ERes2NetV2
+    from ..models.speaker import CAMPlusPlus, ERes2NetV2
     from ..models.vad import FsmnVADNet
+    from ..models.whisper_style import WhisperStyleASR
 
     models = {"MossFormer2": MossFormer2, "Paraformer": Paraformer,
               "CTTransformerPunc": CTTransformerPunc, "FsmnVADNet": FsmnVADNet,
               "TDFUNet": TDFUNet, "SegmentationNet": SegmentationNet, "ERes2NetV2": ERes2NetV2,
-              "Apollo": Apollo, "FlowEnhancer": FlowEnhancer, "EmotionNet": EmotionNet}
+              "Apollo": Apollo, "FlowEnhancer": FlowEnhancer, "EmotionNet": EmotionNet,
+              "CAMPlusPlus": CAMPlusPlus, "SenseVoice": SenseVoice,
+              "WhisperStyleASR": WhisperStyleASR}
     if name not in models:
         raise KeyError(f"model {name!r} is not ported; ported: {sorted(models)}")
     return models[name]

@@ -77,8 +77,8 @@ def _asr_checkpoint_name(repo: str, asr_engine: str) -> str:
     """The default checkpoint directory of an ASR engine, as the JAX
     server names it: whisper_v2 / whisper_v3 (also bare "whisper") /
     whisper_finetune each their own, else whisper-bootstrap;
-    sv-bootstrap for SenseVoice; asr-bootstrap for Paraformer. (The port
-    runs only Paraformer; `ASRProcessor` raises for the others.)"""
+    sv-bootstrap for SenseVoice; asr-bootstrap for Paraformer and for the
+    cloud engines (their local engine, for forced alignment)."""
     eng = str(asr_engine)
     if eng.startswith("whisper"):
         variant = {"whisper_v2": "whisper-v2", "whisper_v3": "whisper-v3",
@@ -111,7 +111,9 @@ def build_model(config=None, device: str | None = None):
     one: the 512/24 separator `sep-bootstrap-512` on the card and the
     256/12 `sep-bootstrap` on the CPU (TD_SEP_CHECKPOINT names another),
     and `vad-`, `asr-`, `punc-`, `spk-`, `seg-`, `den-`, `rest-`, `enh-`
-    and `emo-bootstrap`, the JAX `build_model`'s engine set. The engines
+    and `emo-bootstrap`, the JAX `build_model`'s engine set (ASR_ENGINE
+    picks the ASR checkpoint, `_asr_checkpoint_name`; EMBEDDING_MODEL may
+    name a CAM++ one). The engines
     compute in the card's types (bf16 on the card, float32 on the CPU;
     TD_COMPUTE_DTYPE overrides), the enhancer in float32 as the JAX one
     does; one card needs no mesh."""
@@ -143,7 +145,8 @@ def build_model(config=None, device: str | None = None):
                         device=device, verbose_log=cfg.verbose_log)
     asrp = ASRProcessor(vad_model=cfg.vad_model, asr_model=cfg.asr_model,
                         asr_engine=cfg.asr_engine, punc_model=cfg.punc_model,
-                        emotion_model=cfg.emotion_model, device=device)
+                        emotion_model=cfg.emotion_model, verbose_log=cfg.verbose_log,
+                        device=device)
     tasr = TargetASR(audio_processor=ap, asr_processor=asrp,
                      embedding_model=cfg.embedding_model, device=device,
                      verbose_log=cfg.verbose_log)

@@ -353,8 +353,13 @@ def test_asr_processor_without_engines_passes_through():
 
 
 def test_unported_asr_engine_raises():
-    with pytest.raises(NotImplementedError, match="sensevoice"):
-        ASRProcessor(asr_engine="sensevoice", device="cpu")
+    """Every engine of the JAX processor is ported; a name outside its
+    LOCAL_ENGINES and API_ENGINES raises (the JAX processor would load the
+    checkpoint it is given whatever the name)."""
+    assert ASRProcessor.LOCAL_ENGINES == JaxASRProcessor.LOCAL_ENGINES
+    assert ASRProcessor.API_ENGINES == JaxASRProcessor.API_ENGINES
+    with pytest.raises(ValueError, match="kaldi"):
+        ASRProcessor(asr_engine="kaldi", device="cpu")
 
 
 def test_chip_smoke_synth_copy_renders_train_synth():

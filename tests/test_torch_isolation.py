@@ -6,8 +6,9 @@ sklearn and the JAX package unimportable: the separator, the ASR stage, the
 fused front end, `TargetDiarization.infer`, the streaming and serving
 entry points (`build_model`, `infer_stream`, the server app, the CLI) and
 the rest of the public surface (the enhancer, emotion, forced alignment,
-the VAD helpers, the DSP toolbox) on the shipped checkpoints; without
-aiohttp too, all but the server app.
+the VAD helpers, the DSP toolbox), and the alternate engines (SenseVoice,
+the whisper engines, CAM++ and the cloud clients) on the shipped
+checkpoints; without aiohttp too, all but the server app.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -292,6 +293,45 @@ def test_surface_runs_without_jax():
     root's names, `run_modules` with enhancement, emotion, forced
     alignment, the VAD helpers, F0 and the phase vocoder."""
     proc = _run_blocked(_BLOCKED_SURFACE, extra=("aiohttp",))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_ENGINES = textwrap.dedent("""
+    import json, os
+    from chip_smoke import dialogue, enrollment, synth_utterance
+    from targetdiarization_tpu_torch.models.separation import MossFormer2, SeparationEngine
+    from targetdiarization_tpu_torch.models.speaker import CAMPlusPlus
+    from targetdiarization_tpu_torch.processors import cloud_asr
+    from targetdiarization_tpu_torch.processors.asr import ASRProcessor
+    from targetdiarization_tpu_torch.serve.server import build_model
+    os.environ.update(ASR_ENGINE="sensevoice", EMBEDDING_MODEL="checkpoints/campp-bootstrap")
+    model = build_model(device="cpu")
+    assert model.tasr.asrp.asr.engine == "sensevoice" and model.fused_asr is None
+    assert isinstance(model.tasr.spk.model, CAMPlusPlus)
+    model.ap.separator = SeparationEngine(MossFormer2(dim=64, enc_channels=64, num_blocks=2,
+                                                      group_size=32, qk_dim=32, fsmn_inner=64
+                                                      ).eval(), device="cpu")
+    spk, results, _ = model.infer(dialogue(2.5, seed=1, overlap=True), enrollment(3.0, seed=9))
+    assert spk and results and all(r["type"] == "single" for r in results), results
+    audio, _ = synth_utterance("天地人", np.random.default_rng(0))
+    sv = model.tasr.asrp.asr.asr_detection(audio)[0]
+    assert {"language", "emotion", "event"} <= set(sv), sv
+    wh = ASRProcessor(asr_model="checkpoints/whisper-v2", asr_engine="whisper_v2", device="cpu")
+    assert wh.asr_detection(audio)[0]["timestamp"] == []
+    reply = json.dumps({"code": 0, "data": {"text": "ok", "word_list": []}}).encode()
+    cloud = ASRProcessor(asr_engine="jzx_api", device="cpu")
+    cloud.api_config = {"jzx": {"endpoint": "https://jzx.invalid/asr"}}
+    cloud_asr.urllib_transport = lambda *a: (200, reply)
+    assert cloud.asr_detection(audio)[0]["text"] == "ok"
+""")
+
+
+def test_engines_run_without_jax():
+    """`build_model` with ASR_ENGINE=sensevoice and CAM++ through `infer`
+    (a small separator), a whisper engine, and a cloud engine over a stub
+    transport."""
+    proc = _run_blocked(_BLOCKED_ENGINES, extra=("aiohttp",))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 

@@ -305,10 +305,15 @@ def test_mix_audio_processor_matches_jax(target_asrs, case, monkeypatch):
 
 
 def test_asr_detection_keywords(target_asrs):
-    ours, _ = target_asrs
+    """The local engine ignores `prompt`; a per-call cloud engine goes to
+    its client, which without credentials fails soft as in the JAX
+    package."""
+    ours, theirs = target_asrs
     audio = _speech(1.5, 7)
     base = ours.asrp.asr_detection(audio, no_punc=True)
     assert ours.asrp.asr_detection(audio, asr_engine="paraformer", prompt="天地",
                                    no_punc=True) == base
-    with pytest.raises(NotImplementedError, match="cloud"):
-        ours.asrp.asr_detection(audio, asr_engine="tencent_api")
+    assert not ours.asrp.api_config and not theirs.asrp.api_config
+    assert ours.asrp.asr_detection(audio, asr_engine="tencent_api") == \
+        theirs.asrp.asr_detection(audio, asr_engine="tencent_api") == \
+        [{"text": "", "timestamp": [], "error": "missing credentials"}]
