@@ -20,7 +20,14 @@ Paraformer's forced alignment (`timestamp_prediction`) and the VAD's
 EMBEDDING_MODEL=checkpoints/campp-bootstrap through `infer` and one
 `infer_stream` session, SenseVoice at its full width (seeded weights made
 on the card), a whisper engine at its class defaults (a seeded checkpoint
-written for the run) against its CPU run, and CAM++ against its CPU run.
+written for the run) against its CPU run, and CAM++ against its CPU run,
+and drive the separator zoo (`zoo`): the ten classes of
+`models/zoo.py` at their class defaults, each from a seeded checkpoint
+written for the run through its inverse converter, through
+`SeparationEngine.from_pretrained` (`separate`, `separate_batch`, their
+forwards' lengths: ladder rungs or exact lengths), against the CPU and
+the plain kernels, and `build_model()` with TD_SEP_CHECKPOINT naming the
+ConvTasNet and MossFormer checkpoints through `infer`.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -44,7 +51,11 @@ bf16 agreement, forced alignment's branch and timestamps, launches per
 forward, kernels against plain), and the engines (wall times, launches
 against the forwards, float32 kernels against float32 plain, SenseVoice's
 tags; the full-width SenseVoice's ms and 50 dwconv a forward; whisper's
-ms at 64 steps and its ids against the CPU's; CAM++'s ms and cosines).
+ms at 64 steps and its ids against the CPU's; CAM++'s ms and cosines),
+and the zoo (each class's `separate` ms on 4 s, its forwards, SI-SDR of
+the card against its CPU run, of bf16 against float32 plain and, for
+ConvTasNet and MossFormer, of the kernels against plain; `infer` on two
+of them, kernels against plain with `check_infer`'s limits).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -408,6 +419,11 @@ DWCONV_SHAPES = (  # (name, B, T, K, m, C, dilation, pad_l, pad_r, types) on the
     ("Apollo ConvActNorm, 64k rung x 4 clips", 640, 401, 7, 1, 96, 1, 3, 3, ("float32",)),
     *((f"Apollo restore, {t_out - 1} frames", 80, t_out, 7, 1, 96, 1, 3, 3, ("float32",))
       for t_out in (101, 201, 401, 601)),
+    # ConvTasNet at its class defaults: a 4 s clip at the 64k rung is 7999
+    # encoder frames of 512 channels; K 3 at dilations 2^i, i < 8, SAME pads.
+    # 64 and 128 run on phase tiles (the dilated tile's halo does not fit)
+    *((f"ConvTasNet TCN, dilation {d}", 1, 7999, 3, 1, 512, d, d, d, ("float32", "bfloat16"))
+      for d in (1, 8, 32, 64, 128)),
 )
 # (B, T, C) of Apollo's depthwise convs held above
 APOLLO_DW_SHAPES = {(b, t, c) for name, b, t, _, _, c, *_ in DWCONV_SHAPES
@@ -2481,6 +2497,305 @@ def check_engines(device: str = "cuda") -> dict:
     return {k: system[k] + full[k] for k in system}
 
 
+# ---------------- the zoo: ten separators behind SeparationEngine ----------------
+
+ZOO_KERNEL_CLASSES = ("ConvTasNet", "MossFormer")  # the classes that run kernels
+
+
+def zoo_per_forward(model) -> dict:
+    """Kernel launches of one forward of a zoo model: a dwconv for each
+    depthwise conv of ConvTasNet's TCN blocks (24 at the class defaults),
+    three FFConvM and one gated FLASH for each of MossFormer's FlashBlocks
+    (72 and 24)."""
+    from targetdiarization_tpu_torch.models.restoration import DepthwiseConv1d
+    from targetdiarization_tpu_torch.models.separation import FFConvM, FlashBlock
+
+    mods = list(model.modules())
+    return {k: n for k, n in (("dwconv", sum(isinstance(m, DepthwiseConv1d) for m in mods)),
+                              ("ffconvm", sum(isinstance(m, FFConvM) for m in mods)),
+                              ("flash_gated", sum(isinstance(m, FlashBlock) for m in mods)))
+            if n}
+
+
+def seeded_zoo_model(name: str, args: dict | None = None, seed: int = 11):
+    """The zoo class `name` (at its class defaults unless `args`) with
+    numpy-seeded weights at the JAX initializers' scales: kernels normal
+    with variance 1 / fan-in (flax's lecun_normal), biases zero, norm
+    scales one, PReLU slopes 0.25, MossFormer's offset scales normal(0.02)."""
+    import torch
+    from torch import nn
+
+    from targetdiarization_tpu_torch.models import zoo
+
+    model = getattr(zoo, name)(**(args or {}))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            for leaf, p in module.named_parameters(recurse=False):
+                shape = tuple(p.shape)
+                if leaf == "alpha":
+                    v = np.full(shape, 0.25)
+                elif leaf == "os_gamma":
+                    v = 0.02 * rng.standard_normal(shape)
+                elif leaf.startswith("bias") or leaf in ("b", "beta", "os_beta"):
+                    v = np.zeros(shape)
+                elif leaf in ("w", "weight") and len(shape) == 1 or leaf in ("gamma", "g"):
+                    v = np.ones(shape)
+                else:
+                    if isinstance(module, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
+                        fan = shape[0] * int(np.prod(shape[2:]))  # (in, out, k...)
+                    elif leaf in ("kernel", "dwk", "w", "in_w"):  # (K, m, C), (G, in, out), (3D, D)
+                        fan = shape[0] * shape[1] if len(shape) == 3 else shape[0]
+                    else:  # Linear, Conv and LSTM weights: (out, in, k...)
+                        fan = int(np.prod(shape[1:]))
+                    v = rng.standard_normal(shape) / np.sqrt(fan)
+                p.copy_(torch.from_numpy(v.astype(np.float32)))
+    return model.eval()
+
+
+def best_pairing_si_sdr(got: np.ndarray, want: np.ndarray) -> float:
+    """The smallest stream SI-SDR of `got` against `want` (both (spk, T)) in
+    the pairing of streams that makes it largest (loudness ordering may
+    swap two streams of near-equal loudness)."""
+    import itertools
+
+    return max(min(si_sdr(got[i], want[j]) for i, j in enumerate(perm))
+               for perm in itertools.permutations(range(len(want))))
+
+
+def zoo_engine(name: str, path: str, device: str):
+    """The class's checkpoint through `SeparationEngine.from_pretrained` in
+    float32 and in bf16, each recording its forwards' (rows, samples,
+    lengths)."""
+    from targetdiarization_tpu_torch.models.separation import SeparationEngine
+
+    engines = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = SeparationEngine.from_pretrained(path, device=device, compute_dtype=dtype)
+        eng.calls = []
+        forward = eng._forward
+
+        def recorded(batch, lengths, eng=eng, forward=forward):
+            eng.calls.append([int(batch.shape[0]), int(batch.shape[1]),
+                              [int(x) for x in lengths]])
+            return forward(batch, lengths)
+
+        eng._forward = recorded
+        engines[dtype] = eng
+    if type(engines["float32"].model).__name__ != name:
+        raise AssertionError(f"{path} loaded {type(engines['float32'].model).__name__}")
+    return engines
+
+
+def zoo_cpu_reference(path: str, audio: np.ndarray, threads: int) -> tuple:
+    """The port's own CPU float32 run of the checkpoint under `path` on
+    `audio`, on `threads` of the host's cores, and its ms (in the zoo
+    phase's worker process)."""
+    import torch
+
+    from targetdiarization_tpu_torch.models.separation import SeparationEngine
+    from targetdiarization_tpu_torch.runtime.registry import from_pretrained
+
+    torch.set_num_threads(threads)
+    cpu = SeparationEngine(from_pretrained(path), device="cpu", compute_dtype="float32")
+    t = time.perf_counter()
+    out = cpu.separate(audio)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def zoo_class(name: str, root: str, args: dict | None, device: str, seconds: tuple,
+              cpu_pool, cpu_threads: int) -> tuple:
+    """One class: a seeded checkpoint written through the inverse converter,
+    `separate` (4 s) and `separate_batch` (1.5, 2.5, 4 s) through the
+    float32 and bf16 engines with their forwards, bf16 against float32
+    plain, and for the classes with kernels float32 kernels against
+    float32 plain. The CPU run of the 2 s clip goes to `cpu_pool` as soon
+    as the checkpoint is written. Returns the main path's launches (the
+    bf16 engine's calls) and the card's float32 run of the 2 s clip with
+    the pending CPU run."""
+    import torch
+
+    from targetdiarization_tpu_torch.runtime.registry import save_checkpoint
+
+    t0 = time.time()
+    path = os.path.join(root, name)
+    save_checkpoint(path, seeded_zoo_model(name, args), name, args)
+    long_s, *batch_s, cpu_s = seconds
+    short = two_voice_mix(cpu_s, seed=26)
+    reference = cpu_pool.submit(zoo_cpu_reference, path, short, cpu_threads)
+    engines = zoo_engine(name, path, device)
+    e32, e16 = engines["float32"], engines["bfloat16"]
+    mix = two_voice_mix(long_s, seed=21)
+    clips = [two_voice_mix(s, seed=22 + i) for i, s in enumerate(batch_s + [long_s])]
+    e16.separate(mix)  # warm-up: the rung's cuDNN, cuFFT and cuBLAS set-up
+    torch.cuda.synchronize()
+    e16.calls.clear()
+    reset_launches()
+    t = time.perf_counter()
+    main = e16.separate(mix)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    separate_calls = list(e16.calls)
+    e16.calls.clear()
+    main_batch = e16.separate_batch(clips)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    batch_calls = list(e16.calls)
+    per = zoo_per_forward(e16.model)
+    want = {k: n * len(separate_calls + batch_calls) for k, n in per.items()}
+    if any(launches[k] != n for k, n in want.items()) or (not want and any(launches.values())):
+        raise AssertionError(f"{name}: launches {launches}, want {want} from "
+                             f"{separate_calls + batch_calls}")
+    f32 = e32.separate(mix)
+    with plain_kernels():
+        plain = e32.separate(mix)
+    card = e32.separate(short)
+    outs = [main, f32, plain, card, *main_batch]
+    if not all(np.isfinite(o).all() for o in outs) or main.shape != (e16.num_spks, mix.size) \
+            or [b.shape for b in main_batch] != [(e16.num_spks, c.size) for c in clips]:
+        raise AssertionError(f"{name}: bad outputs {[o.shape for o in outs]}")
+    agree = {"bf16_vs_f32_plain_db": best_pairing_si_sdr(main, plain)}
+    if name in ZOO_KERNEL_CLASSES:
+        agree["f32_kernels_vs_f32_plain_db"] = best_pairing_si_sdr(f32, plain)
+    emit("zoo_class", name=name, args=args or "class defaults",
+         params=sum(p.numel() for p in e32.model.parameters()), pad_safe=e16.pad_safe,
+         num_spks=e16.num_spks, sample_rate=e16.sample_rate, per_forward=per, separate_ms=ms,
+         audio_s=long_s, rtfx=long_s / (ms / 1e3),
+         forwards={"separate": separate_calls, "separate_batch": batch_calls},
+         launches=launches, **agree, phase_s=time.time() - t0)
+    limits = {"bf16_vs_f32_plain_db": 10.0, "f32_kernels_vs_f32_plain_db": 40.0}
+    missed = {k: v for k, v in agree.items() if not v >= limits[k]}
+    if missed:
+        raise AssertionError(f"{name}: below the limits {limits}: {missed}")
+    # the ladder for the pad-safe classes, exact lengths clip by clip otherwise
+    sizes = [len(x) for x in clips]
+    if e16.pad_safe:  # the batcher pads a forward's rows to a row rung
+        rows = [1] * (4 - len(sizes)) if e16._mb is not None else []
+        expect = [[1, e16.ladder.bucket(mix.size), [mix.size]],
+                  [len(sizes + rows), e16.ladder.bucket(max(sizes)), sizes + rows]]
+    else:
+        expect = [[1, mix.size, [mix.size]]] + [[1, n, [n]] for n in sizes]
+    if e16.sample_rate == SR and separate_calls + batch_calls != expect:
+        raise AssertionError(f"{name}: forwards {separate_calls + batch_calls}, want {expect}")
+    del engines, e32, e16
+    return launches, (name, card, reference)
+
+
+def zoo_infer(name: str, path: str, device: str = "cuda") -> dict:
+    """`build_model()` with TD_SEP_CHECKPOINT naming the class's checkpoint:
+    `infer` on (a) in bf16 (the main path, counted), then float32 kernels
+    against float32 plain with `check_infer`'s limits."""
+    from unittest import mock
+
+    import torch
+
+    from targetdiarization_tpu_torch.serve.server import build_model
+
+    calls, enroll = infer_inputs()
+    audio = calls["a: overlapped dialogue 20 s"][0]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        with mock.patch.dict(os.environ, {"TD_SEP_CHECKPOINT": path, "TD_COMPUTE_DTYPE": dtype}):
+            td = build_model(device=device)
+        if type(td.ap.separator.model).__name__ != name:
+            raise AssertionError(f"build_model loaded {type(td.ap.separator.model).__name__}")
+        seen = record_target_pieces(td)
+        forwards = []
+        hook = td.ap.separator.model.register_forward_hook(
+            lambda m, a, o: forwards.append(list(a[0].shape)))
+        if dtype == "bfloat16":
+            reset_launches()
+            res, wall = timed(lambda: td.infer(audio, enroll))
+            out["launches"] = read_launches()
+            out["main"] = infer_summary(res, seen["pieces"])
+            emit("zoo_infer", name=name, path="bf16 kernels", wall_s=wall,
+                 rtfx=len(audio) / SR / wall, separator_forwards=forwards,
+                 entries=out["main"]["entries"], launches=out["launches"])
+            want = {k: n * len(forwards) for k, n in zoo_per_forward(td.ap.separator.model).items()}
+            if not forwards or any(out["launches"][k] < n for k, n in want.items()):
+                raise AssertionError(f"{name} infer: launches {out['launches']}, separator "
+                                     f"forwards {forwards}")
+        else:
+            kern = infer_summary(td.infer(audio, enroll), seen["pieces"])
+            with plain_kernels():
+                plain = infer_summary(td.infer(audio, enroll), seen["pieces"])
+            f32 = infer_agreement(kern, plain)
+            emit("zoo_infer_agreement", name=name, f32_kernels_vs_f32_plain=f32,
+                 separator_forwards=forwards, bf16_vs_f32_plain=infer_agreement(
+                     out["main"], plain))
+            # check_infer's float32 limits for a call whose target went
+            # through the separator
+            if not (f32["target_spk_equal"] and f32["speakers_equal"] and f32["cer"] <= 0.03
+                    and f32["entries_equal"] and f32["timerange_max_gap_s"] <= 0.01
+                    and (f32["target_audio_equal"]
+                         or (f32["target_audio_si_sdr_db"] or 0.0) >= 40.0)
+                    and f32["target_entries"]["unpaired"] == [[], []]
+                    and min_at_least(f32["target_entries"]["min_si_sdr_db"], 40.0)):
+                raise AssertionError(f"{name} infer: float32 kernels vs float32 plain: {f32}")
+        hook.remove()
+        del td
+        torch.cuda.synchronize()
+    return out["launches"]
+
+
+def check_zoo(device: str = "cuda", args: dict | None = None,
+              seconds: tuple = (4.0, 1.5, 2.5, 2.0),
+              infer: tuple = ("ConvTasNet", "MossFormer")) -> dict:
+    """The zoo phase: every class at its class defaults (or `args[name]`)
+    through the engine, then `build_model()` + `infer` on two of them.
+    Each class's CPU run of the 2 s clip (the card's float32 run must
+    agree with it) runs in one worker process while the card goes on with
+    the next classes: a process, so that it holds no lock the thread that
+    drives the card waits for, on half the host's cores, so that neither
+    side's threads wait for a core. The seeded
+    checkpoints live in a temporary directory for the run. Returns the
+    main path's launches: the bf16 engines' and infers'."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from targetdiarization_tpu_torch.models.zoo import CLASSES
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="td_zoo_")
+    cpu_threads = max(1, min(torch.get_num_threads(), len(os.sched_getaffinity(0)) // 2))
+    totals = {k: 0 for k in read_launches()}
+    pending = []
+    try:
+        with ProcessPoolExecutor(1, multiprocessing.get_context("spawn")) as cpu_pool:
+            for name in CLASSES:
+                launches, p = zoo_class(name, root, (args or {}).get(name), device, seconds,
+                                        cpu_pool, cpu_threads)
+                pending.append(p)
+                for k, v in launches.items():
+                    totals[k] += v
+            for name in infer:
+                for k, v in zoo_infer(name, os.path.join(root, name), device).items():
+                    totals[k] += v
+            card_s = time.time() - t0
+            missed = {}
+            for name, card, reference in pending:
+                on_cpu, cpu_ms = reference.result()
+                db = best_pairing_si_sdr(card, on_cpu)
+                emit("zoo_cpu_reference", name=name, cpu_separate_ms=cpu_ms,
+                     cpu_audio_s=seconds[-1], cpu_threads=cpu_threads,
+                     card_f32_vs_cpu_f32_db=db)
+                if not (np.isfinite(on_cpu).all() and on_cpu.shape == card.shape and db >= 40.0):
+                    missed[name] = db
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    emit("zoo", phase_s=time.time() - t0, card_s=card_s, launches=totals)
+    if missed:
+        raise AssertionError(f"the card's float32 runs below 40 dB against the CPU's: {missed}")
+    if not all(totals[k] > 0 for k in ("ffconvm", "flash_gated", "dwconv")):
+        raise AssertionError(f"the zoo's main path missed a kernel: {totals}")
+    return totals
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -2522,14 +2837,14 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
                 **extra, "dtype": dtype, "per": per}
 
     pair = "one 512/24 layer pair, B 2, T 20224"
-    apollo = [{k: r[k] for k in ("shape", "dtype", "B", "T", "K", "C", "max_abs_err", "ms",
-                                 "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "library_device_ms")}
-              for r in rows["dwconv"] if r["shape"].startswith("Apollo")]
-    sensevoice = [{k: r[k] for k in ("shape", "dtype", "B", "T", "K", "C", "max_abs_err", "ms",
-                                     "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "library_device_ms")}
-                  for r in rows["dwconv"] if r["shape"].startswith("SenseVoice")]
+
+    def shape_rows(prefix):
+        return [{k: r[k] for k in ("shape", "dtype", "B", "T", "K", "C", "dilation",
+                                   "max_abs_err", "rel_err", "ms", "device_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+                for r in rows["dwconv"] if r["shape"].startswith(prefix)]
+
+    apollo, sensevoice = shape_rows("Apollo"), shape_rows("SenseVoice")
     return {"kernels": [
         entry("ffconvm", "targetdiarization_tpu_torch/csrc/ffconvm.cu",
               "targetdiarization_tpu/ops/pallas/ffconvm.py:117", "ffconvm",
@@ -2542,7 +2857,8 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
               "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
               lambda r: per_layer.get(r["shape"], 0) if r["dtype"] == "float32" else 0,
               "float32", pair + " (FSMN conv0 + conv1; float32 FMA work)", "float32")
-        | {"apollo_shapes": apollo, "sensevoice_shapes": sensevoice},
+        | {"apollo_shapes": apollo, "sensevoice_shapes": sensevoice,
+           "convtasnet_shapes": shape_rows("ConvTasNet")},
         entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group",
               lambda r: r["dtype"] == "bfloat16", "bfloat16",
@@ -2563,7 +2879,8 @@ def main() -> None:
                      "FusedFrontend": check_frontend(),
                      "TargetDiarization.infer": check_infer(),
                      "TargetDiarizationStream.infer_stream": check_stream(),
-                     "surface": check_surface(), "engines": check_engines()}
+                     "surface": check_surface(), "engines": check_engines(),
+                     "zoo": check_zoo()}
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

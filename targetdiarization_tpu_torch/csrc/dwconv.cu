@@ -38,6 +38,13 @@
 // memories) latency, not throughput, sets the time: each thread sums 2
 // rows, not 8, so that four times as many threads share the work (126
 // blocks at SAN-M), and a block takes one tile.
+// Phase tiles: where the tile and its (K-1)*d halo rows do not fit in
+// shared memory (K 3 above dilation 44 at the 128-row tile: ConvTasNet's
+// dilations 64 and 128), the kernel runs as d undilated convs, one over
+// each phase t = p (mod d): a tile stages rows p + d*j, p + d*(j+1), ...
+// of one phase and its halo is K-1 staged rows, and the same summation
+// runs on it at dilation 1. This path is its own instantiation
+// (kPhase), so the shapes that fit keep their code.
 // Shapes taken: m 1, 2 or 4, and C*m a multiple of 4 (float32) or 8
 // (bf16); the wrapper checks them.
 
@@ -58,6 +65,7 @@ constexpr int kRShort = 2;     // ... and short ones
 constexpr int kU = 8;          // taps of one register window
 constexpr int kRows = 128;     // the time tile (output rows) of long inputs
 constexpr int kLong = 4096;    // T_out from which the tile is kRows
+constexpr int kMaxDilation = 1 << 16;
 constexpr size_t kMaxSmem = 232448;         // a block's limit on sm_90
 constexpr size_t kDefaultSmem = 48 * 1024;  // usable without the opt-in attribute
 
@@ -67,25 +75,33 @@ __host__ __device__ constexpr int k_padded(int k) { return (k + kU - 1) / kU * k
 struct Tiling {
     int rows;     // output rows of one phase a thread sums (kRLong or kRShort)
     int lanes;    // channel vectors of a block (8, 16 or 32)
-    int tile;     // output rows of a tile: d * (rows of one phase), a multiple of 8 d
+    int tile;     // output rows of a tile: d * (rows of one phase), a multiple of 8 d;
+                  // with phase tiles, rows of one phase
     int threads;  // lanes x rows of threads, at most kThreads
     int n_bufs;   // staging buffers: two where they fit (the next tile loads while one is summed)
     size_t smem;
 };
 
+// phase: the tile holds rows of one phase (t = p mod dil), staged at
+// dilation 1, at most the phase's ceil(t_out / dil) rows rounded up
 template <typename T>
-Tiling tiling(int t_out, int cin, int k, int dil) {
+Tiling tiling(int t_out, int cin, int k, int dil, bool phase = false) {
     const int vecs = cin / kVec;
     Tiling tl;
     tl.lanes = vecs >= 32 ? 32 : vecs >= 16 ? 16 : 8;
     const bool long_rows = t_out >= kLong;
     tl.rows = long_rows ? kRLong : kRShort;
     const int target = long_rows ? kRows : std::min(kRows, kThreads / tl.lanes * tl.rows);
-    tl.tile = dil * std::max(1, target / (dil * tl.rows)) * tl.rows;
+    const int d = phase ? 1 : dil;  // the staged rows' dilation
+    tl.tile = d * std::max(1, target / (d * tl.rows)) * tl.rows;
+    if (phase) {
+        const int phase_rows = (t_out + dil - 1) / dil;
+        tl.tile = std::min(tl.tile, (phase_rows + tl.rows - 1) / tl.rows * tl.rows);
+    }
     tl.threads = tl.lanes * std::min(kThreads / tl.lanes, tl.tile / tl.rows);
     const size_t width = static_cast<size_t>(tl.lanes) * kVec;
     const size_t buf =
-        (static_cast<size_t>(tl.tile) + static_cast<size_t>(k - 1) * dil) * width * sizeof(T);
+        (static_cast<size_t>(tl.tile) + static_cast<size_t>(k - 1) * d) * width * sizeof(T);
     const size_t taps = static_cast<size_t>(k_padded(k)) * width * sizeof(float);
     tl.n_bufs = long_rows && 2 * buf + taps <= kMaxSmem ? 2 : 1;
     tl.smem = tl.n_bufs * buf + taps;
@@ -130,10 +146,13 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&a)[N])
     else p[0] = __float2bfloat16_rn(a[0]);
 }
 
-template <typename T, int M, int kR>
+// With kPhase, dil is 1 and pstride the conv's dilation: tile tt holds
+// rows p + pstride * (j0 + i) of phase p = tt / tpp, j0 = (tt mod tpp) * tile.
+template <typename T, int M, int kR, bool kPhase>
 __global__ void __launch_bounds__(kThreads) dwconv_kernel(
     const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int t_in,
-    int t_out, int c, int k, int dil, int pad_l, int lanes, int tile, int n_bufs) {
+    int t_out, int c, int k, int dil, int pad_l, int lanes, int tile, int n_bufs, int pstride,
+    int tpp) {
     constexpr int kOut = kVec / M;  // output channels of a thread
     extern __shared__ __align__(16) uint8_t smem[];
     const int cin = c * M;
@@ -143,7 +162,16 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
     T* xs = reinterpret_cast<T*>(smem);
     float* ws = reinterpret_cast<float*>(smem + static_cast<size_t>(n_bufs) * buf * sizeof(T));
     const int ocb = width / M;  // ws: [k_padded(k)][M][ocb]
-    const int n_tiles = (t_out + tile - 1) / tile;
+    const int n_tiles = kPhase ? pstride * tpp : (t_out + tile - 1) / tile;
+    // the input row staged as row r of tile tt
+    auto in_row = [&](int tt, int r) -> int {
+        if constexpr (kPhase) {
+            const int p = tt / tpp;
+            return p + pstride * ((tt - p * tpp) * tile + r) - pad_l;
+        } else {
+            return tt * tile - pad_l + r;
+        }
+    };
 
     const int tid = threadIdx.x;
     const int ci0 = blockIdx.y * width;
@@ -159,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
     auto stage = [&](int tt, int b) {
         const uint32_t dst = smem_u32(xs + b * buf) + cc * 16;
         for (int r = tid / row_copies; r < rows; r += blockDim.x / row_copies) {
-            const int t = tt * tile - pad_l + r;
+            const int t = in_row(tt, r);
             const bool ok = t >= 0 && t < t_in && ch < cin;
             cp_async16(dst + r * row_copies * 16, ok ? xb + static_cast<size_t>(t) * cin + ch : xb,
                        ok ? 16 : 0);
@@ -193,6 +221,8 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
         __syncthreads();
         const T* xc = xs + b * buf + cv * kVec;
         const int t0 = tt * tile;
+        const int p = kPhase ? tt / tpp : 0;         // phase tiles: the phase,
+        const int j0 = kPhase ? (tt - p * tpp) * tile : 0;  // and its first row
         // chunk qc: phase p = qc % d, rows t0 + p + d * (kR * (qc / d) + r), r < kR
         for (int qc = tid / lanes; active && qc < tile / kR; qc += n_rt) {
             const int base = qc % dil + dil * kR * (qc / dil);
@@ -227,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
             }
 #pragma unroll
             for (int r = 0; r < kR; ++r) {
-                const int t = t0 + base + dil * r;
+                const int t = kPhase ? p + pstride * (j0 + base + r) : t0 + base + dil * r;
                 if (t < t_out) store_vec(ob + static_cast<size_t>(t) * c, acc[r]);
             }
         }
@@ -240,18 +270,24 @@ template <typename T, int M>
 int launch(const void* x, const void* w, void* out, int batch, int t_in, int t_out, int c,
            int k, int dil, int pad_l, cudaStream_t stream) {
     const int cin = c * M;
-    if (batch <= 0 || t_out <= 0 || c <= 0 || k <= 0 || dil <= 0 || cin % (16 / sizeof(T)))
+    if (batch <= 0 || t_out <= 0 || c <= 0 || k <= 0 || dil <= 0 || dil > kMaxDilation ||
+        cin % (16 / sizeof(T)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
         return static_cast<int>(cudaErrorMisalignedAddress);
-    const Tiling tl = tiling<T>(t_out, cin, k, dil);
+    Tiling tl = tiling<T>(t_out, cin, k, dil);
+    const bool phase = tl.smem > kMaxSmem;  // the halo does not fit: phase tiles
+    if (phase) tl = tiling<T>(t_out, cin, k, dil, true);
     if (tl.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    const int variant = tl.rows == kRLong;
-    auto kernel = variant ? dwconv_kernel<T, M, kRLong> : dwconv_kernel<T, M, kRShort>;
+    const int variant = (tl.rows == kRLong) + 2 * phase;
+    auto kernel = phase ? (tl.rows == kRLong ? dwconv_kernel<T, M, kRLong, true>
+                                             : dwconv_kernel<T, M, kRShort, true>)
+                        : (tl.rows == kRLong ? dwconv_kernel<T, M, kRLong, false>
+                                             : dwconv_kernel<T, M, kRShort, false>);
     // above 48 KB the block needs the opt-in, and the largest shared-memory
     // carveout; both are set once per card and size, as the calls cost host time
     constexpr int kCards = 64;
-    static size_t opted_in[2][kCards];
+    static size_t opted_in[4][kCards];
     static int sms[kCards];
     const bool opt_in = tl.smem > kDefaultSmem;
     int dev = 0;
@@ -269,7 +305,9 @@ int launch(const void* x, const void* w, void* out, int batch, int t_in, int t_o
         opted_in[variant][dev] = tl.smem;
     }
     const int width = tl.lanes * kVec;
-    const int n_tiles = (t_out + tl.tile - 1) / tl.tile;
+    // phase tiles: tpp tiles of each of the dil phases (phase 0 has the most rows)
+    const int tpp = phase ? ((t_out + dil - 1) / dil + tl.tile - 1) / tl.tile : 0;
+    const int n_tiles = phase ? dil * tpp : (t_out + tl.tile - 1) / tl.tile;
     const int slices = (cin + width - 1) / width;
     int blocks = n_tiles;  // short inputs: one tile a block
     if (tl.n_bufs == 2) {  // long ones: one block an SM walks its tiles
@@ -283,7 +321,7 @@ int launch(const void* x, const void* w, void* out, int batch, int t_in, int t_o
     const dim3 grid(blocks, slices, batch);
     kernel<<<grid, tl.threads, tl.smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), t_in, t_out,
-        c, k, dil, pad_l, tl.lanes, tl.tile, tl.n_bufs);
+        c, k, phase ? 1 : dil, pad_l, tl.lanes, tl.tile, tl.n_bufs, dil, tpp);
     return static_cast<int>(cudaGetLastError());
 }
 

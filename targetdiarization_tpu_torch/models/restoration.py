@@ -98,8 +98,9 @@ class DepthwiseConv1d(nn.Module):
     """SAME depthwise conv over time with a bias; kernel (K, 1, C), the JAX
     layout."""
 
-    def __init__(self, dim: int, kernel: int):
+    def __init__(self, dim: int, kernel: int, dilation: int = 1):
         super().__init__()
+        self.dilation = dilation
         self.kernel = nn.Parameter(torch.zeros(kernel, 1, dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.taps = None
@@ -108,7 +109,8 @@ class DepthwiseConv1d(nn.Module):
         self.taps = prepare_taps(self.kernel)
 
     def forward(self, x):  # (B, T, C)
-        return dw_conv1d(x, self.kernel, padding="SAME", taps=self.taps) + self.bias
+        return dw_conv1d(x, self.kernel, dilation=self.dilation, padding="SAME",
+                         taps=self.taps) + self.bias
 
 
 class ConvActNorm(nn.Module):

@@ -1,4 +1,4 @@
-"""MossFormer2 speech separation and its windowed engine, in PyTorch.
+"""MossFormer2 speech separation and the windowed separation engine, in PyTorch.
 
 Counterpart of targetdiarization_tpu/models/separation.py. The layout is
 time-major (B, T, C) throughout, as in the JAX package. The two Pallas
@@ -101,7 +101,8 @@ class FFConvM(nn.Module):
 
 
 def rope_rotate(x, rot_dims: int = 32):
-    """Rotary embedding on the first `rot_dims` dims (GPT-J partial RoPE)."""
+    """Rotary embedding on the first `rot_dims` dims (GPT-J partial RoPE).
+    The float32 tables promote a reduced-type x to float32, as in JAX."""
     t = x.shape[-2]
     d = min(rot_dims, x.shape[-1])
     d -= d % 2
@@ -111,7 +112,7 @@ def rope_rotate(x, rot_dims: int = 32):
     x_rot, x_pass = x[..., :d].float(), x[..., d:]
     x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
     rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return torch.cat([rot.reshape(x_rot.shape).to(x.dtype), x_pass], dim=-1)
+    return torch.cat([rot.reshape(x_rot.shape), x_pass.to(rot.dtype)], dim=-1)
 
 
 # ---------------- FLASH shared-A gated attention ----------------
@@ -149,19 +150,23 @@ class FlashBlock(nn.Module):
         g = self.group_size
         n_groups = t // g  # t is padded to a multiple of g by the caller
         e = v.shape[-1]
+        # the attention in the promoted type of q and v: float32 for a
+        # reduced-type stream (its q and k come float32 from the rotary
+        # tables), the output back in v's type, as in JAX
+        dt = torch.promote_types(quad_q.dtype, v.dtype)
 
         def group(z):
-            return z.reshape(b, n_groups, g, z.shape[-1]).contiguous()
+            return z.to(dt).reshape(b, n_groups, g, z.shape[-1]).contiguous()
 
         qq, qk_, lq, lk = group(quad_q), group(quad_k), group(lin_q), group(lin_k)
         vg, ug = group(v), group(u)
-        mg = mask.reshape(b, n_groups, 1, g).to(v.dtype).contiguous()
+        mg = mask.reshape(b, n_groups, 1, g).to(dt).contiguous()
         # global linear-attention summaries over the valid frames (lin_k is
         # masked), shared by all groups; small, so plain matmuls
         n_valid = torch.clamp_min(mask.sum(dim=-1), 1.0)[:, None, None]
         lin_kv = (torch.einsum("bgnd,bgne->bde", lk, vg) / n_valid).contiguous()
         lin_ku = (torch.einsum("bgnd,bgne->bde", lk, ug) / n_valid).contiguous()
-        out = flash_gated(qq, qk_, vg, ug, mg, lq, lin_kv, lin_ku).reshape(b, t, e)
+        out = flash_gated(qq, qk_, vg, ug, mg, lq, lin_kv, lin_ku).to(v.dtype).reshape(b, t, e)
         out = self.to_out(out)
         return x + out * mask[..., None]
 
@@ -317,6 +322,11 @@ class MossFormer2(nn.Module):
         self.decoder = nn.ConvTranspose1d(enc_channels, 1, kernel_size, stride=stride,
                                           bias=False)
 
+    def reduced_modules(self) -> tuple:
+        """The modules that compute in a reduced type: those before the
+        float32 position table, which promotes the stream."""
+        return self.encoder, self.mask_net.in_norm, self.mask_net.bottleneck
+
     def forward(self, wav, lengths=None):
         """wav (B, T) in [-1, 1], lengths (B,) valid samples -> (B, spk, T)."""
         b, t_in = wav.shape
@@ -344,35 +354,46 @@ class MossFormer2(nn.Module):
 
 
 class SeparationEngine:
-    """Windowed 2-speaker separation with loudness-ordered outputs.
+    """Windowed separation with loudness-ordered outputs, for MossFormer2
+    and every separator of the zoo (`models/zoo.py`).
 
-    16 kHz processing in non-overlapping windows (10 s = 160 k samples);
-    a clip that fits one window is padded only to the next rung of the
-    32k/64k/96k/160k ladder. All windows of a call go through the model in
-    one synchronous batched forward; concurrent callers' forwards at one
+    Processing at the model's rate in non-overlapping windows (`window`,
+    10 s = 160 k samples by default); a clip that fits one window is
+    padded only to the next rung of the ladder (32k/64k/96k below the
+    window, then the window). All windows of a call go through the model
+    in one synchronous batched forward; concurrent callers' forwards at one
     rung share one forward of ROW_LADDER rows (`_run_mb`). Outputs are
     loudest first.
 
-    In a reduced compute type only the encoder, `in_norm` and the
-    bottleneck compute in it: the float32 position table promotes the
-    stream there, and every later module computes in float32 from weights
-    rounded to the compute type (`promote_after`), as the JAX model does.
-    The estimate is rounded to the compute type and returned in float32."""
+    A class whose bucket-padded forward departs from its exact-length one
+    (`zoo.pad_safe`) is never padded: a clip runs at its exact length,
+    `separate_batch` goes clip by clip, and long audio runs its full
+    windows in one batch and the remainder at its exact length.
+
+    In a reduced compute type the modules the model names
+    (`reduced_modules()`; for MossFormer2 the encoder, `in_norm` and the
+    bottleneck, before the float32 position table) compute in it, and
+    every later module in float32 from weights rounded to it
+    (`promote_after`), as the JAX model's types do. The estimate is
+    rounded to the compute type and returned in float32."""
 
     WINDOW = 160_000
-    LADDER = BucketLadder((32_000, 64_000, 96_000, WINDOW))
 
-    def __init__(self, model: MossFormer2, device: str | torch.device = "cuda",
-                 compute_dtype: str | None = None):
+    def __init__(self, model: nn.Module, device: str | torch.device = "cuda",
+                 compute_dtype: str | None = None, window: int | None = None):
+        from .zoo import pad_safe
+
         self.device = torch.device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
-        net = model.mask_net
-        self.model = promote_after(model.to(self.device),
-                                   (model.encoder, net.in_norm, net.bottleneck),
+        self.model = promote_after(model.to(self.device), model.reduced_modules(),
                                    self.compute_dtype).eval()
         prepare_kernels(self.model)
         self.sample_rate = model.sample_rate
         self.num_spks = model.num_spks
+        self.window = window or self.WINDOW
+        self.ladder = BucketLadder(tuple(b for b in (32_000, 64_000, 96_000) if b < self.window)
+                                   + (self.window,))
+        self.pad_safe = pad_safe(model)
         # concurrent sessions' forwards at one sample rung coalesce into one
         # batched forward (runtime/microbatch.py)
         self._mb = microbatch.MicroBatcher(self._run_mb) if microbatch.enabled() else None
@@ -384,6 +405,8 @@ class SeparationEngine:
     @classmethod
     def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
                         compute_dtype: str | None = None) -> "SeparationEngine":
+        """The engine of the checkpoint under `path`, whatever separator its
+        `model_name` names."""
         from ..runtime.registry import from_pretrained
 
         return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype)
@@ -463,27 +486,41 @@ class SeparationEngine:
         n = len(work)
         if n == 0:
             return np.zeros((self.num_spks, t_orig), np.float32)
-        win = self.WINDOW if n > self.WINDOW else self.LADDER.bucket(n)
+        win = self.window
+        if n <= win:  # one window: a ladder rung, or the exact length
+            win = self.ladder.bucket(n) if self.pad_safe else n
         n_win = -(-n // win)
-        batch = np.pad(work, (0, n_win * win - n)).reshape(n_win, win)
-        lengths = np.full(n_win, win, np.int64)
-        lengths[-1] = n - (n_win - 1) * win
-        est = self._dispatch(batch, lengths)
-        # non-overlapping windows stitched back in order
-        streams = est.transpose(1, 0, 2).reshape(self.num_spks, -1)[:, :n]
+        if self.pad_safe or n % win == 0:
+            batch = np.pad(work, (0, n_win * win - n)).reshape(n_win, win)
+            lengths = np.full(n_win, win, np.int64)
+            lengths[-1] = n - (n_win - 1) * win
+            est = self._dispatch(batch, lengths)
+            # non-overlapping windows stitched back in order
+            streams = est.transpose(1, 0, 2).reshape(self.num_spks, -1)[:, :n]
+        else:
+            # the full windows in one forward, the remainder at its length
+            full = n // win
+            est = self._dispatch(work[: full * win].reshape(full, win),
+                                 np.full(full, win, np.int64))
+            rem = self._dispatch(work[full * win:][None], np.array([n - full * win], np.int64))
+            streams = np.concatenate([est.transpose(1, 0, 2).reshape(self.num_spks, -1),
+                                      rem[0]], axis=-1)
         return self._order_and_fit(streams, sr, t_orig)
 
     def separate_batch(self, clips: list, sr: int = 16000) -> list:
         """Separate several clips in one forward, each padded to the ladder
-        rung of the longest; clips longer than a window go through
-        `separate`. Returns a list of (spk, len(clip)) arrays."""
+        rung of the longest; clips longer than a window, and every clip of
+        a class that is not pad-safe, go through `separate`. Returns a list
+        of (spk, len(clip)) arrays."""
         clips = [np.asarray(c, np.float32) for c in clips]
+        if not self.pad_safe:
+            return [self.separate(c, sr=sr) for c in clips]
         work = [resample_poly_np(c, self.sample_rate, sr) for c in clips] \
             if sr != self.sample_rate else clips
-        small = [i for i, c in enumerate(work) if 0 < len(c) <= self.WINDOW]
+        small = [i for i, c in enumerate(work) if 0 < len(c) <= self.window]
         out: list = [None] * len(clips)
         if small:
-            bucket = self.LADDER.bucket(max(len(work[i]) for i in small))
+            bucket = self.ladder.bucket(max(len(work[i]) for i in small))
             batch = np.stack([np.pad(work[i], (0, bucket - len(work[i]))) for i in small])
             est = self._dispatch(batch, np.array([len(work[i]) for i in small]))
             for j, i in enumerate(small):

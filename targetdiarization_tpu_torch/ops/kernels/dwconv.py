@@ -21,20 +21,47 @@ from ._build import declare
 # when the dilation d is above 16) plus the (K-1) d halo rows of up to
 # CHANNELS input channels, and its taps, K rounded up to a multiple of
 # WINDOW, x CHANNELS as float32; the widest case is float32, 4 bytes an
-# element (a second staging buffer is added only where it fits)
+# element (a second staging buffer is added only where it fits). Where
+# that does not fit, phase tiles stage at most ROWS rows of one dilation
+# phase plus K-1 halo rows, at any dilation up to MAX_DILATION.
 ROWS, CHANNELS, WINDOW = 128, 128, 8
 MAX_SMEM = 232448
+MAX_DILATION = 1 << 16
 # the kernel's channel vectors: m output-channel groups of 4 input channels,
 # whole 16-byte copies of each row
 KERNEL_M = (1, 2, 4)
 
 
-def smem_bytes(k: int, m: int, dilation: int) -> int:
-    """The most shared memory a block takes for K taps at this dilation (m
-    does not change it: a block's CHANNELS input channels are CHANNELS / m
-    groups)."""
+def _tile_bytes(k: int, dilation: int) -> int:
     k_padded = -(-k // WINDOW) * WINDOW
     return ((max(ROWS, 8 * dilation) + (k - 1) * dilation) * CHANNELS + k_padded * CHANNELS) * 4
+
+
+def _phase_tile_bytes(k: int) -> int:
+    return ((ROWS + k - 1) * CHANNELS + -(-k // WINDOW) * WINDOW * CHANNELS) * 4
+
+
+def phase_tiles(k: int, dilation: int) -> bool:
+    """Whether the kernel runs this (K, dilation) on phase tiles: the
+    dilated tile and its halo do not fit in shared memory."""
+    return _tile_bytes(k, dilation) > MAX_SMEM
+
+
+def smem_bytes(k: int, m: int, dilation: int) -> int:
+    """The most shared memory a block takes for K taps at this dilation,
+    dilated tiles where they fit and phase tiles elsewhere (m does not
+    change it: a block's CHANNELS input channels are CHANNELS / m groups)."""
+    return _phase_tile_bytes(k) if phase_tiles(k, dilation) else _tile_bytes(k, dilation)
+
+
+def max_dilation(k: int) -> int:
+    """The largest dilation the kernel takes at K taps (0: none)."""
+    if _phase_tile_bytes(k) <= MAX_SMEM:
+        return MAX_DILATION
+    d = 0
+    while _tile_bytes(k, d + 1) <= MAX_SMEM:
+        d += 1
+    return d
 
 
 def _kernel_takes(m: int, cin: int, dtype: torch.dtype) -> bool:
@@ -79,7 +106,7 @@ def _check(x, kernel, dilation, pad_l, pad_r) -> int:
                          f"{16 // x.element_size()} for {x.dtype}, got m {m}, C*m {x.shape[-1]}")
     if dilation < 1 or pad_l < 0 or pad_r < 0:
         raise ValueError(f"bad dilation {dilation} or padding ({pad_l}, {pad_r})")
-    if smem_bytes(k, m, dilation) > MAX_SMEM:
+    if not 1 <= dilation <= max_dilation(k):
         raise ValueError(f"dwconv kernel cannot take K {k}, m {m}, dilation {dilation}: "
                          f"its tile needs {smem_bytes(k, m, dilation)} bytes of shared memory")
     t_out = x.shape[1] + pad_l + pad_r - (k - 1) * dilation
@@ -116,11 +143,9 @@ def prepare_taps(kernel: torch.Tensor) -> Taps:
         raise ValueError(f"kernel must be (K, m, C), got {tuple(kernel.shape)}")
     w = kernel.detach().contiguous()
     k, m, c = w.shape
-    max_dilation = 0  # the largest d with smem_bytes(k, m, d) <= MAX_SMEM
-    while smem_bytes(k, m, max_dilation + 1) <= MAX_SMEM:
-        max_dilation += 1
     return Taps(w, (k, m, w.shape[2]), w.dtype, w.get_device(), w.data_ptr(),
-                int(w.dtype is torch.bfloat16), max_dilation, _kernel_takes(m, m * c, w.dtype))
+                int(w.dtype is torch.bfloat16), max_dilation(k),
+                _kernel_takes(m, m * c, w.dtype))
 
 
 def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,

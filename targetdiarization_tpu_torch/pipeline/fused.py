@@ -330,7 +330,14 @@ class FusedSeparation:
     """Separation of the overlap clips and the scoring of both streams in
     one device pass: the clips pad to one rung of LADDER and the batch to
     one of N_LADDER; a clip above the top rung, an empty clip or more than
-    four clips give None, and the caller takes the windowed path."""
+    four clips give None, and the caller takes the windowed path.
+
+    Any two-speaker 16 kHz separator runs here padded to the rung, a zoo
+    class that is not pad-safe too (the JAX package's fused program does
+    not route by pad safety). A separator with another speaker count or
+    rate (BSRNN: 4 stems at 44.1 kHz) gives None on every call: the JAX
+    program fails on its output's shape and `infer` falls back to the
+    windowed path there; the port takes that path by `takes_separator`."""
 
     LADDER = BucketLadder((32000, 64000, 96000, 160000))
     N_LADDER = BucketLadder((1, 2, 4))
@@ -341,6 +348,7 @@ class FusedSeparation:
         self.restorer = restorer if (restorer is not None
                                      and getattr(restorer.model, "sr", 0) == 16000) else None
         self.device = sep.device
+        self.takes_separator = sep.num_spks == 2 and sep.sample_rate == 16000
 
     def _device(self, clips_i16: torch.Tensor, lengths: torch.Tensor) -> dict:
         nb, bucket = clips_i16.shape
@@ -378,7 +386,8 @@ class FusedSeparation:
 
             clips = [resample_poly_np(c, 16000, sr) for c in clips]
         top = self.LADDER.rungs[-1]
-        if not clips or any(len(c) > top or len(c) == 0 for c in clips) \
+        if not self.takes_separator or not clips \
+                or any(len(c) > top or len(c) == 0 for c in clips) \
                 or len(clips) > self.N_LADDER.rungs[-1]:
             return None
         bucket = self.LADDER.bucket(max(len(c) for c in clips))

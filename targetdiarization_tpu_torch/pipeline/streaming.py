@@ -171,7 +171,7 @@ class TargetDiarizationStream(TargetDiarization):
                 n += 1
         sep = self.ap.separator
         if sep is not None:
-            for bucket in (b for b in sep.LADDER.rungs if b <= max(max_bucket, 32000)):
+            for bucket in (b for b in sep.ladder.rungs if b <= max(max_bucket, 32000)):
                 for nb in rows_of(sep.ROW_LADDER):
                     sep._run_mb(bucket, [(np.zeros((1, bucket), np.float32),
                                           np.ones(1, np.int64))] * nb)

@@ -40,6 +40,7 @@ Layout rules:
 from __future__ import annotations
 
 import re
+from functools import partial
 
 import numpy as np
 import torch
@@ -304,10 +305,104 @@ def emotion_net_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+# ---------------- the separator zoo ----------------
+#
+# The zoo's modules keep the JAX names, so one set of layout rules serves
+# all ten classes, both ways: Dense kernels are Linear weights transposed,
+# Conv kernels torch's conv layouts, ConvTranspose kernels (the modules
+# named in _ZOO_TRANSPOSED) flipped then transposed, LSTM `{fwd,bwd}_{wi,
+# wh,bi,bh}` torch's `{weight,bias}_{ih,hh}_l0[_reverse]` (weights
+# transposed), flax norms' `scale` a `weight`, and an FFConvM's depthwise
+# kernel its `dwk`. ConvTasNet's depthwise kernels and every other leaf
+# (gLN `w`/`b`, `gamma`/`beta`, PReLU `alpha`, the packed MHA, the grouped
+# dense banks) keep name and layout.
+
+ZOO_NAMES = ("ConvTasNet", "DPRNNTasNet", "DPTNet", "SuDORMRF", "SkiMNet", "BSRNN", "TDANet",
+             "TFGridNet", "MossFormer", "AFRCNN")
+_ZOO_TRANSPOSED = ("decoder", "deconv", "intra_linear", "inter_linear")
+_FFCONVM = ("to_hidden", "to_qk", "to_out")
+# 1-D `weight`s that are not a flax norm's `scale` (MossFormer's gLN)
+_ZOO_KEEP_WEIGHT = {"MossFormer": ("in_norm",)}
+_LSTM_JAX = re.compile(r"^(fwd|bwd)_(wi|wh|bi|bh)$")
+_LSTM_TORCH = re.compile(r"^(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$")
+_LSTM_LEAVES = {"wi": "weight_ih", "wh": "weight_hh", "bi": "bias_ih", "bh": "bias_hh"}
+
+
+def zoo_state_dict(tree: dict, name: str) -> dict[str, torch.Tensor]:
+    """State dict of the zoo class `name` (`models/zoo.py`) from its flax tree."""
+    if name not in ZOO_NAMES:
+        raise KeyError(f"{name!r} is not a zoo class")
+    sd = {}
+    for key, v in flatten(tree.get("params", tree)).items():
+        v = np.asarray(v, np.float32)
+        path = key.split("/")
+        leaf = path.pop()
+        mod = path[-1] if path else ""
+        lstm = _LSTM_JAX.fullmatch(leaf)
+        if lstm:
+            leaf = _LSTM_LEAVES[lstm[2]] + "_l0" + ("_reverse" if lstm[1] == "bwd" else "")
+            v = v.T if v.ndim == 2 else v
+        elif leaf == "kernel" and mod == "dwconv":
+            if len(path) > 1 and path[-2] in _FFCONVM:
+                path.pop()
+                leaf = "dwk"
+        elif leaf == "kernel":
+            leaf = "weight"
+            if v.ndim == 2:
+                v = v.T
+            elif mod in _ZOO_TRANSPOSED:
+                v = v[::-1].transpose(1, 2, 0) if v.ndim == 3 else v[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                v = v.transpose(2, 1, 0) if v.ndim == 3 else v.transpose(3, 2, 0, 1)
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join(path + [leaf])] = np.ascontiguousarray(v)
+    return _to_tensors(sd)
+
+
+def zoo_flat_params(state_dict: dict, name: str) -> dict[str, np.ndarray]:
+    """The inverse of `zoo_state_dict`: a zoo model's state dict as the JAX
+    package's flat `params.npz` names ("params/...") and layouts."""
+    if name not in ZOO_NAMES:
+        raise KeyError(f"{name!r} is not a zoo class")
+    keep = _ZOO_KEEP_WEIGHT.get(name, ())
+    flat = {}
+    for key, t in state_dict.items():
+        v = t.detach().float().cpu().numpy()
+        path = key.split(".")
+        leaf = path.pop()
+        mod = path[-1] if path else ""
+        lstm = _LSTM_TORCH.fullmatch(leaf)
+        if lstm:
+            short = {v_: k for k, v_ in _LSTM_LEAVES.items()}[lstm[1]]
+            leaf = ("bwd_" if lstm[2] else "fwd_") + short
+            v = v.T if v.ndim == 2 else v
+        elif leaf == "dwk":
+            path.append("dwconv")
+            leaf = "kernel"
+        elif leaf == "weight" and v.ndim == 1:
+            leaf = "weight" if mod in keep else "scale"
+        elif leaf == "weight":
+            leaf = "kernel"
+            if v.ndim == 2:
+                v = v.T
+            elif mod in _ZOO_TRANSPOSED:
+                v = v.transpose(2, 0, 1)[::-1] if v.ndim == 3 else \
+                    v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                v = v.transpose(2, 1, 0) if v.ndim == 3 else v.transpose(2, 3, 1, 0)
+        flat["/".join(["params", *path, leaf])] = np.ascontiguousarray(v, np.float32)
+    return flat
+
+
 CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_state_dict,
               "CTTransformerPunc": cttransformer_state_dict, "FsmnVADNet": fsmn_vad_state_dict,
               "TDFUNet": tdfunet_state_dict, "SegmentationNet": segmentation_state_dict,
               "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict,
               "FlowEnhancer": flow_enhancer_state_dict, "EmotionNet": emotion_net_state_dict,
               "CAMPlusPlus": campp_state_dict, "SenseVoice": sensevoice_state_dict,
-              "WhisperStyleASR": whisper_state_dict}
+              "WhisperStyleASR": whisper_state_dict,
+              **{name: partial(zoo_state_dict, name=name) for name in ZOO_NAMES}}
+
+# port state dict -> the JAX flat parameter names, for the zoo
+INVERSE_CONVERTERS = {name: partial(zoo_flat_params, name=name) for name in ZOO_NAMES}

@@ -8,7 +8,9 @@ entry points (`build_model`, `infer_stream`, the server app, the CLI) and
 the rest of the public surface (the enhancer, emotion, forced alignment,
 the VAD helpers, the DSP toolbox), and the alternate engines (SenseVoice,
 the whisper engines, CAM++ and the cloud clients) on the shipped
-checkpoints; without aiohttp too, all but the server app.
+checkpoints, and the separator zoo (chip_smoke.py's zoo phase at small
+sizes, `build_model` with a zoo checkpoint); without aiohttp too, all but
+the server app.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -336,6 +338,56 @@ def test_engines_run_without_jax():
     assert "BLOCKED_OK" in proc.stdout
 
 
+_BLOCKED_ZOO = textwrap.dedent("""
+    import os, tempfile
+    from unittest import mock
+    import torch
+    import chip_smoke
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwop
+    from targetdiarization_tpu_torch.ops.kernels import dwconv as dwk, ffconvm as ffk, flash as flk
+    from targetdiarization_tpu_torch.runtime.registry import save_checkpoint
+    from targetdiarization_tpu_torch.serve.server import build_model
+    torch.set_num_threads(2)
+    torch.cuda.synchronize = lambda *a, **k: None
+    # the CPU's plain versions, counted as the card's wrappers count launches
+    for mod, attr, wrapper in ((separation, "ffconvm", ffk.ffconvm),
+                               (separation, "flash_gated", flk.flash_gated),
+                               (dwop, "dwconv", dwk.dwconv)):
+        def counted(*a, _f=getattr(mod, attr), _w=wrapper, **k):
+            _w.launches += 1
+            return _f(*a, **k)
+        setattr(mod, attr, counted)
+    args = ZOO_ARGS
+    totals = chip_smoke.check_zoo(device="cpu", args=args, infer=(), seconds=(1.0, 0.5, 0.75, 0.5))
+    assert totals["ffconvm"] and totals["flash_gated"] and totals["dwconv"], totals
+    root = tempfile.mkdtemp()
+    path = os.path.join(root, "ConvTasNet")
+    save_checkpoint(path, chip_smoke.seeded_zoo_model("ConvTasNet", args["ConvTasNet"]),
+                    "ConvTasNet", args["ConvTasNet"])
+    with mock.patch.dict(os.environ, {"TD_SEP_CHECKPOINT": path}):
+        model = build_model(device="cpu")
+    assert type(model.ap.separator.model).__name__ == "ConvTasNet"
+    spk, results, _ = model.infer(chip_smoke.dialogue(2.5, seed=1, overlap=True),
+                                  chip_smoke.enrollment(3.0, seed=9))
+    assert spk and results, results
+""")
+
+
+def test_zoo_runs_without_jax():
+    """chip_smoke.py's zoo phase at small sizes on the CPU (every class
+    written through its inverse converter, loaded by the engine, run in
+    float32 and bf16 against the CPU), and `build_model()` with
+    TD_SEP_CHECKPOINT naming a ConvTasNet checkpoint through `infer`."""
+    from torch_zoo_cases import TINY
+
+    zoo_args = dict(TINY, BSRNN=dict(TINY["BSRNN"], sample_rate=44100, num_output=4,
+                                     num_spks=4))
+    proc = _run_blocked(_BLOCKED_ZOO.replace("ZOO_ARGS", repr(zoo_args)), extra=("aiohttp",))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
 def test_asr_processor_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_ASR], cwd=REPO, capture_output=True,
                           text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
@@ -385,8 +437,10 @@ def test_unconfigured_separator_returns_input_twice():
 def test_unported_model_name_raises():
     from targetdiarization_tpu_torch.runtime.registry import get_model_cls
 
+    # every name of the JAX registry is ported since the zoo (ConvTasNet
+    # was this test's name until then)
     with pytest.raises(KeyError, match="not ported"):
-        get_model_cls("ConvTasNet")
+        get_model_cls("NoSuchSeparator")
 
 
 def _signals():

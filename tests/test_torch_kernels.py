@@ -441,13 +441,18 @@ def test_prepared_taps_match_tensor_taps(rng):
 
 @pytest.mark.parametrize("k,m", [(1, 1), (11, 1), (13, 1), (39, 1), (39, 2), (5, 3)])
 def test_prepared_taps_dilation_limit_matches_shared_memory(k, m):
-    """`max_dilation` is the largest dilation whose tile fits the block's
-    shared memory, as the kernel sizes it."""
+    """`max_dilation` is the largest dilation the kernel takes: dilated
+    tiles up to the largest dilation whose tile and halo fit the block's
+    shared memory, phase tiles (K-1 halo rows at any dilation) above it, as
+    the kernel sizes them; a K whose phase tile does not fit takes none."""
     taps = dwmod.prepare_taps(torch.zeros(k, m, 32))
     d = taps.max_dilation
+    assert d == dwmod.max_dilation(k) == dwmod.MAX_DILATION
     assert dwmod.smem_bytes(k, m, d) <= dwmod.MAX_SMEM
-    if k > 1:
-        assert dwmod.smem_bytes(k, m, d + 1) > dwmod.MAX_SMEM
+    d0 = max(dd for dd in range(1, 1000) if not dwmod.phase_tiles(k, dd))
+    assert dwmod.smem_bytes(k, m, d0) <= dwmod.MAX_SMEM
+    assert dwmod.phase_tiles(k, d0 + 1) and dwmod.smem_bytes(k, m, d0 + 1) <= dwmod.MAX_SMEM
+    assert dwmod.max_dilation(440) == 0
 
 
 def test_chip_smoke_plain_patch_takes_the_models_calls(rng):
