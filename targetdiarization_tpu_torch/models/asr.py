@@ -67,9 +67,9 @@ class SANMAttention(nn.Module):
         self.fsmn = nn.Parameter(torch.zeros(fsmn_kernel, 1, dim)) if memory else None
         self.fsmn_taps = None
 
-    def prepare_kernel(self):
+    def prepare_kernel(self, owner: str = ""):
         if self.fsmn is not None:
-            self.fsmn_taps = prepare_taps(self.fsmn)
+            self.fsmn_taps = prepare_taps(self.fsmn, owner)
 
     def forward(self, x, mask, context=None):
         # x (B, T, D); mask (B, T). Cross-attention sees every context

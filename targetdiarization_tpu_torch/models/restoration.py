@@ -105,8 +105,8 @@ class DepthwiseConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.taps = None
 
-    def prepare_kernel(self):
-        self.taps = prepare_taps(self.kernel)
+    def prepare_kernel(self, owner: str = ""):
+        self.taps = prepare_taps(self.kernel, owner)
 
     def forward(self, x):  # (B, T, C)
         return dw_conv1d(x, self.kernel, dilation=self.dilation, padding="SAME",

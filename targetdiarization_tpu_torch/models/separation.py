@@ -91,9 +91,10 @@ class FFConvM(nn.Module):
             return self.norm.g, self.norm.g.new_zeros(1)
         return self.norm.weight, self.norm.bias
 
-    def prepare_kernel(self):
+    def prepare_kernel(self, owner: str = ""):
         self.kernel_ops = prepare_ffconvm(*self._norm_params(), self.proj.weight, self.proj.bias,
-                                          self.dwk, self.norm_kind, self.proj.weight.dtype)
+                                          self.dwk, self.norm_kind, self.proj.weight.dtype,
+                                          owner=owner)
 
     def forward(self, x):
         return ffconvm(x, *self._norm_params(), self.proj.weight, self.proj.bias, self.dwk,
@@ -190,8 +191,9 @@ class DilatedDenseFsmnNet(nn.Module):
             [nn.Parameter(torch.full((channels,), 0.25)) for _ in range(depth)])
         self.conv_taps = [None] * depth
 
-    def prepare_kernel(self):
-        self.conv_taps = [prepare_taps(k) for k in self.conv_kernels]
+    def prepare_kernel(self, owner: str = ""):
+        self.conv_taps = [prepare_taps(k, f"{owner}.conv_kernels.{i}")
+                          for i, k in enumerate(self.conv_kernels)]
 
     def forward(self, x, mask):
         parts = [x]
@@ -305,12 +307,18 @@ class MaskNet(nn.Module):
 
 
 class MossFormer2(nn.Module):
-    """2-speaker time-domain masking separator at 16 kHz."""
+    """2-speaker time-domain masking separator at 16 kHz. Its arguments stay
+    attributes, as the JAX module's fields (a checkpoint's `model_args`);
+    `scan_unroll` is the JAX model's scan setting, which the layer loop
+    here does not read."""
 
     def __init__(self, dim: int = 512, enc_channels: int = 512, num_blocks: int = 24,
                  kernel_size: int = 16, num_spks: int = 2, group_size: int = 256,
-                 qk_dim: int = 128, fsmn_inner: int = 256, sample_rate: int = 16000):
+                 qk_dim: int = 128, fsmn_inner: int = 256, sample_rate: int = 16000,
+                 scan_unroll: int = 0):
         super().__init__()
+        self.dim, self.enc_channels, self.num_blocks = dim, enc_channels, num_blocks
+        self.qk_dim, self.fsmn_inner, self.scan_unroll = qk_dim, fsmn_inner, scan_unroll
         self.kernel_size = kernel_size
         self.num_spks = num_spks
         self.group_size = group_size

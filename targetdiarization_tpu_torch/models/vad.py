@@ -37,8 +37,8 @@ class FsmnBlock(nn.Module):
         self.up = nn.Linear(proj, hidden)
         self.memory_taps = None
 
-    def prepare_kernel(self):
-        self.memory_taps = prepare_taps(self.memory)
+    def prepare_kernel(self, owner: str = ""):
+        self.memory_taps = prepare_taps(self.memory, owner)
 
     def forward(self, x, mask):
         # x (B, T, hidden), mask (B, T, 1)

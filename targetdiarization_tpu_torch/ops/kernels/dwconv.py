@@ -5,6 +5,12 @@ dw_conv1d_pallas. The kernel is `csrc/dwconv.cu`; `dwconv_plain` is the
 same function in plain PyTorch (`F.conv1d` with groups=C). Both sum in
 float32 for float32 or bfloat16 inputs (`F.conv1d` on bfloat16 is the
 library's own accumulation) and return x's type.
+
+Gradients follow the JAX package's custom VJP (`_dw_bwd`): `DwconvFn`'s
+backward takes dx at m = 1 by the kernel again, on the taps flipped in
+time with the pads swapped to span - pad (`dwconv.backward_launches`
+counts those launches); dx at m > 1 and dw are float32 sums per tap in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import check_fresh
 from ._build import declare
 
 # mirrors csrc/dwconv.cu: a block stages at most ROWS output rows (8 d
@@ -126,7 +133,11 @@ class Taps(NamedTuple):
     places it, so a call on the card validates x with a few attribute reads
     and copies nothing. The kernel reads the taps at `ptr`: the model's
     weights are frozen once they are made, and a model loaded, moved or
-    cast afterwards needs them made again."""
+    cast afterwards needs them made again, and so does a weight changed in
+    place: `source` is the tensor they were made from (None for an
+    inference tensor, which keeps no version) and `version` its version
+    then, and on the card a call after an in-place change raises, naming
+    `owner`, the module."""
 
     weight: torch.Tensor
     shape: tuple
@@ -136,16 +147,116 @@ class Taps(NamedTuple):
     is_bf16: int
     max_dilation: int
     kernel_ok: bool
+    source: torch.Tensor | None = None
+    version: int = 0
+    owner: str = ""
+
+    def tracked(self) -> tuple:
+        return () if self.source is None else ((self.source, self.version),)
 
 
-def prepare_taps(kernel: torch.Tensor) -> Taps:
+def prepare_taps(kernel: torch.Tensor, owner: str = "") -> Taps:
     if kernel.dim() != 3:
         raise ValueError(f"kernel must be (K, m, C), got {tuple(kernel.shape)}")
     w = kernel.detach().contiguous()
     k, m, c = w.shape
+    source = None if kernel.is_inference() else kernel
     return Taps(w, (k, m, w.shape[2]), w.dtype, w.get_device(), w.data_ptr(),
                 int(w.dtype is torch.bfloat16), max_dilation(k),
-                _kernel_takes(m, m * c, w.dtype))
+                _kernel_takes(m, m * c, w.dtype), source,
+                0 if source is None else source._version, owner)
+
+
+def _launch(x, taps: Taps, dilation: int, pad_l: int, pad_r: int):
+    """One launch of the kernel on x (B, T, C*m) and prepared taps."""
+    k, m, c = taps.shape
+    b, t, cin = x.shape
+    t_out = t + pad_l + pad_r - (k - 1) * dilation
+    if not (taps.kernel_ok and x.dtype is taps.dtype and cin == m * c and x.is_contiguous()
+            and x.get_device() == taps.device and t_out > 0
+            and 1 <= dilation <= taps.max_dilation and pad_l >= 0 and pad_r >= 0
+            and (taps.source is None or taps.source._version == taps.version)):
+        _check(x, taps.weight, dilation, pad_l, pad_r)  # raises with the reason
+        check_fresh(taps)
+    # the output has x's shape for m 1 and SAME or (lorder, rorder) pads:
+    # empty_like is the cheaper allocation on the host
+    out = torch.empty_like(x) if t_out == t and m == 1 else \
+        torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
+    _fn(taps.device, x.data_ptr(), taps.ptr, out.data_ptr(), b, t, t_out, c, m, k, dilation,
+        pad_l, taps.is_bf16)
+    return out
+
+
+def _forward(x, kernel, dilation: int, pad_l: int, pad_r: int, taps: Taps | None):
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dwconv_plain(x, kernel, dilation, pad_l, pad_r)
+        raise RuntimeError(f"dwconv runs on cpu or cuda, not {x.device}")
+    if taps is None:
+        raise ValueError("dwconv on the card takes taps made once by prepare_taps "
+                         "(engines make them with ops.kernels.prepare_kernels)")
+    out = _launch(x, taps, dilation, pad_l, pad_r)
+    dwconv.launches += 1
+    return out
+
+
+def _dx(g, w, dilation: int, pad_l: int, pad_r: int, t: int):
+    """dx of the conv for the output gradient g (B, T_out, C) and taps w:
+    x[s] received sum_i w[i] g[s + pad_l - i d], a conv of g with the taps
+    flipped in time and pads span - pad_l, span - pad_r. At m = 1 that is
+    the conv itself (the kernel on the card, its plain version on the CPU);
+    at m > 1 a float32 sum per tap of g's shifted rows, per input group."""
+    k, m, c = w.shape
+    span = (k - 1) * dilation
+    lp, rp = span - pad_l, span - pad_r
+    if m > 1:
+        gp = F.pad(g.float(), (0, 0, lp, rp))
+        wt = w.float()
+        acc = g.new_zeros((g.shape[0], t, c, m), dtype=torch.float32)
+        for i in range(k):
+            off = span - i * dilation
+            acc += gp[:, off:off + t, :, None] * wt[i].T
+        return acc.reshape(g.shape[0], t, c * m).to(g.dtype)
+    if lp < 0 or rp < 0:  # pads above the span: the rows they add read nothing
+        g = g[:, max(-lp, 0): g.shape[1] - max(-rp, 0)]
+        lp, rp = max(lp, 0), max(rp, 0)
+    flipped = w.flip(0).to(g.dtype).contiguous()
+    if not g.is_cuda:
+        return dwconv_plain(g, flipped, dilation, lp, rp)
+    out = _launch(g.contiguous(), prepare_taps(flipped), dilation, lp, rp)
+    dwconv.backward_launches += 1
+    return out
+
+
+def _dw(g, x, w, dilation: int, pad_l: int, pad_r: int):
+    """dw[i, j, c] = sum over (b, t) of g[b, t, c] xp[b, t + i d, c m + j],
+    in float32 a tap at a time, cast to w's type."""
+    k, m, c = w.shape
+    b, t_out = g.shape[:2]
+    xp = F.pad(x.float(), (0, 0, pad_l, pad_r))
+    g32 = g.float()
+    return torch.stack([
+        torch.einsum("btc,btcj->jc", g32,
+                     xp[:, i * dilation: i * dilation + t_out].reshape(b, t_out, c, m))
+        for i in range(k)]).to(w.dtype)
+
+
+class DwconvFn(torch.autograd.Function):
+    """dwconv with the JAX package's gradient rule (`_dw_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, dilation, pad_l, pad_r, taps):
+        ctx.save_for_backward(x, kernel)
+        ctx.conv = (dilation, pad_l, pad_r)
+        return _forward(x, kernel, dilation, pad_l, pad_r, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dilation, pad_l, pad_r = ctx.conv
+        dx = _dx(g, w, dilation, pad_l, pad_r, x.shape[1]) if ctx.needs_input_grad[0] else None
+        dw = _dw(g, x, w, dilation, pad_l, pad_r) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None, None, None
 
 
 def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,
@@ -154,29 +265,12 @@ def dwconv(x, kernel, dilation: int = 1, pad_l: int = 0, pad_r: int = 0,
     run `dwconv_plain` on `kernel`; CUDA tensors launch the kernel (float32
     or bfloat16) on `taps` alone, the kernel's taps made once in x's type
     on its card (`prepare_taps`), and raise without them: the call copies
-    nothing."""
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return dwconv_plain(x, kernel, dilation, pad_l, pad_r)
-        raise RuntimeError(f"dwconv runs on cpu or cuda, not {x.device}")
-    if taps is None:
-        raise ValueError("dwconv on the card takes taps made once by prepare_taps "
-                         "(engines make them with ops.kernels.prepare_kernels)")
-    k, m, c = taps.shape
-    b, t, cin = x.shape
-    t_out = t + pad_l + pad_r - (k - 1) * dilation
-    if not (taps.kernel_ok and x.dtype is taps.dtype and cin == m * c and x.is_contiguous()
-            and x.get_device() == taps.device and t_out > 0
-            and 1 <= dilation <= taps.max_dilation and pad_l >= 0 and pad_r >= 0):
-        _check(x, taps.weight, dilation, pad_l, pad_r)  # raises with the reason
-    # the output has x's shape for m 1 and SAME or (lorder, rorder) pads:
-    # empty_like is the cheaper allocation on the host
-    out = torch.empty_like(x) if t_out == t and m == 1 else \
-        torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
-    _fn(taps.device, x.data_ptr(), taps.ptr, out.data_ptr(), b, t, t_out, c, m, k, dilation,
-        pad_l, taps.is_bf16)
-    dwconv.launches += 1
-    return out
+    nothing. Where autograd records (grad mode on and x or kernel needing a
+    gradient) the call goes through `DwconvFn`, else straight on."""
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
+        return DwconvFn.apply(x, kernel, dilation, pad_l, pad_r, taps)
+    return _forward(x, kernel, dilation, pad_l, pad_r, taps)
 
 
 dwconv.launches = 0
+dwconv.backward_launches = 0

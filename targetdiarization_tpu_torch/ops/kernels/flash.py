@@ -11,6 +11,11 @@ float32 accumulation, the gate in float32, outputs in v's type. The
 kernel runs both products on the tensor cores, float32 operands as three
 passes over their bf16 halves: it agrees with the plain version within
 chip_smoke.py's limit of 1e-4 of max|out| in float32, not bit for bit.
+
+`FlashGatedFn` and `FlashGroupFn` are the gradients, as the JAX package's
+custom VJPs take them (`_gated_bwd`, `_flash_bwd`): the forward launches
+the kernel, the backward recomputes the plain version under autograd; the
+mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import ctypes
 
 import torch
 
+from . import grads_by_recompute
 from ._build import declare
 
 
@@ -80,10 +86,7 @@ def _check(q, k, v, u, mask, lq=None, lin_kv=None, lin_ku=None):
                          f"a multiple of 128 (csrc/flash_gated.cu), got g {g}, d {d}, e {e}")
 
 
-def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):
-    """Fused gated FLASH epilogue. CPU tensors run `flash_gated_plain`;
-    CUDA tensors launch the kernel (float32 or bfloat16, all inputs of
-    one type)."""
+def _gated_forward(q, k, v, u, mask, lq, lin_kv, lin_ku):
     if q.device.type == "cpu":
         return flash_gated_plain(q, k, v, u, mask, lq, lin_kv, lin_ku)
     if q.device.type != "cuda":
@@ -99,13 +102,7 @@ def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):
     return out
 
 
-flash_gated.launches = 0
-
-
-def flash_group_attention(q, k, v, u, mask):
-    """Grouped relu^2 attention with one A applied to v and u: q, k (B, G, g, d);
-    v, u (B, G, g, e); mask (B, G, 1, g). CPU tensors run `flash_group_plain`;
-    CUDA tensors launch the kernel (float32 or bfloat16, all inputs of one type)."""
+def _group_forward(q, k, v, u, mask):
     if q.device.type == "cpu":
         return flash_group_plain(q, k, v, u, mask)
     if q.device.type != "cuda":
@@ -120,6 +117,67 @@ def flash_group_attention(q, k, v, u, mask):
               int(q.dtype == torch.bfloat16))
     flash_group_attention.launches += 1
     return out_v, out_u
+
+
+def _mask_needs_none(needs):
+    """The recompute's needs with the mask (input 4) left out, as JAX's
+    backward returns None for it."""
+    return tuple(n and i != 4 for i, n in enumerate(needs))
+
+
+class FlashGatedFn(torch.autograd.Function):
+    """flash_gated with the JAX package's gradient rule (`_gated_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, u, mask, lq, lin_kv, lin_ku):
+        ctx.save_for_backward(q, k, v, u, mask, lq, lin_kv, lin_ku)
+        return _gated_forward(q, k, v, u, mask, lq, lin_kv, lin_ku)
+
+    @staticmethod
+    def backward(ctx, g):
+        return grads_by_recompute(flash_gated_plain, ctx.saved_tensors,
+                                  _mask_needs_none(ctx.needs_input_grad), g)
+
+
+class FlashGroupFn(torch.autograd.Function):
+    """flash_group_attention with the JAX package's gradient rule (`_flash_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, u, mask):
+        ctx.save_for_backward(q, k, v, u, mask)
+        return _group_forward(q, k, v, u, mask)
+
+    @staticmethod
+    def backward(ctx, g_v, g_u):
+        return grads_by_recompute(flash_group_plain, ctx.saved_tensors,
+                                  _mask_needs_none(ctx.needs_input_grad), (g_v, g_u))
+
+
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_gated(q, k, v, u, mask, lq, lin_kv, lin_ku):
+    """Fused gated FLASH epilogue. CPU tensors run `flash_gated_plain`;
+    CUDA tensors launch the kernel (float32 or bfloat16, all inputs of
+    one type). Where autograd records the call goes through `FlashGatedFn`."""
+    args = (q, k, v, u, mask, lq, lin_kv, lin_ku)
+    if _records(*args):
+        return FlashGatedFn.apply(*args)
+    return _gated_forward(*args)
+
+
+flash_gated.launches = 0
+
+
+def flash_group_attention(q, k, v, u, mask):
+    """Grouped relu^2 attention with one A applied to v and u: q, k (B, G, g, d);
+    v, u (B, G, g, e); mask (B, G, 1, g). CPU tensors run `flash_group_plain`;
+    CUDA tensors launch the kernel (float32 or bfloat16, all inputs of one type).
+    Where autograd records the call goes through `FlashGroupFn`."""
+    if _records(q, k, v, u, mask):
+        return FlashGroupFn.apply(q, k, v, u, mask)
+    return _group_forward(q, k, v, u, mask)
 
 
 flash_group_attention.launches = 0

@@ -133,6 +133,42 @@ def mossformer2_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+_INVERSE_RENAMES = (
+    (re.compile(r"^mask_net/layers/(\d+)/(flash|fsmn)/"), r"mask_net/\2_\1/"),
+    (re.compile(r"/dwk$"), "/dwconv/kernel"),
+    (re.compile(r"/ddn/conv_kernels/(\d+)$"), r"/ddn/conv\1/kernel"),
+    (re.compile(r"/ddn/(in_w|in_b|prelu)/(\d+)$"), r"/ddn/\1\2"),
+)
+# MossFormer2's 1-D `weight`s that are not a flax LayerNorm's `scale`
+_GLN = ("in_norm", "intra_norm")
+
+
+def mossformer2_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `mossformer2_state_dict`: a MossFormer2 state dict as
+    the JAX package's flat `params.npz` names ("params/...") and layouts,
+    in the per-layer layout (`flash_{i}`, `fsmn_{i}`) of the shipped
+    checkpoints, which the JAX loader stacks for its scan."""
+    flat = {}
+    for key, t in state_dict.items():
+        v = t.detach().float().cpu().numpy()
+        name = key.replace(".", "/")
+        if name == "encoder/weight":
+            name, v = "encoder/kernel", v.transpose(2, 1, 0)
+        elif name == "decoder/weight":
+            name, v = "decoder/kernel", v.transpose(2, 0, 1)[::-1]
+        else:
+            for pat, rep in _INVERSE_RENAMES:
+                name = pat.sub(rep, name)
+            path = name.split("/")
+            if path[-1] == "weight" and v.ndim == 2:
+                path[-1], v = "kernel", v.T
+            elif path[-1] == "weight" and path[-2] not in _GLN:
+                path[-1] = "scale"
+            name = "/".join(path)
+        flat[f"params/{name}"] = np.ascontiguousarray(v, np.float32)
+    return flat
+
+
 _PARAFORMER_STACKED = re.compile(r"^(encoder/blocks|decoder_blocks)/block/(.+)$")
 _PARAFORMER_RENAMES = (
     (re.compile(r"^encoder/block_(\d+)/"), r"encoder/blocks/\1/"),
@@ -404,5 +440,6 @@ CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_st
               "WhisperStyleASR": whisper_state_dict,
               **{name: partial(zoo_state_dict, name=name) for name in ZOO_NAMES}}
 
-# port state dict -> the JAX flat parameter names, for the zoo
-INVERSE_CONVERTERS = {name: partial(zoo_flat_params, name=name) for name in ZOO_NAMES}
+# port state dict -> the JAX flat parameter names
+INVERSE_CONVERTERS = {"MossFormer2": mossformer2_flat_params,
+                      **{name: partial(zoo_flat_params, name=name) for name in ZOO_NAMES}}

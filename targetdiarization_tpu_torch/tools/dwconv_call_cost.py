@@ -7,7 +7,8 @@ entry with the thirteen typed arguments, and times in turns, in one
 process: the port's `dwconv` call (packed), the same call through the
 typed entry, and `F.conv1d(groups=C)` on a ready padded input, at the
 shapes of `chip_smoke.py`'s dwconv check (the ASR path's SAN-M and VAD
-memories and the separator's FSMN convs) in float32 and bfloat16.
+memories, the separator's FSMN convs and the other models' convs) in the
+types that script checks them in.
 
 Times are chip_smoke.py's: host-inclusive milliseconds per call by CUDA
 events over back-to-back calls (each round library, packed, typed, typed,
@@ -15,7 +16,7 @@ packed, library; the median over the rounds), and device milliseconds from
 20 launches replayed in one CUDA graph. Run from the repository root on a
 machine with one card:
 
-    python3 -m targetdiarization_tpu_torch.tools.dwconv_call_cost [--rounds 7]
+    python3 -m targetdiarization_tpu_torch.tools.dwconv_call_cost [--rounds 7] [--shapes SAN-M,VAD]
 
 It prints the card's name and power limit and one JSON line per shape and
 type, and raises if a convention's output differs from the plain version's.
@@ -75,14 +76,19 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rounds", type=int, default=7)
     parser.add_argument("--iters", type=int, default=200, help="calls per timing, small shapes")
+    parser.add_argument("--shapes", default="",
+                        help="comma-separated name prefixes of the shapes to time (default all)")
     args = parser.parse_args()
+    prefixes = tuple(p for p in args.shapes.split(",") if p)
     torch = chip_smoke.require_cuda()
     torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.environment()["nvidia_smi"], flush=True)
     packed, typed = dwmod._fn, typed_entry()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, batch, t, k, m, c, dil, pad_l, pad_r in chip_smoke.DWCONV_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, batch, t, k, m, c, dil, pad_l, pad_r, types in chip_smoke.DWCONV_SHAPES:
+        if prefixes and not name.startswith(prefixes):
+            continue
+        for dtype in (getattr(torch, n) for n in types):
             x = torch.randn(batch, t, c * m, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(k, m, c, generator=gen, device="cuda") * 0.2).to(dtype)
             taps = dwmod.prepare_taps(w)

@@ -10,7 +10,8 @@ the VAD helpers, the DSP toolbox), and the alternate engines (SenseVoice,
 the whisper engines, CAM++ and the cloud clients) on the shipped
 checkpoints, and the separator zoo (chip_smoke.py's zoo phase at small
 sizes, `build_model` with a zoo checkpoint); without aiohttp too, all but
-the server app.
+the server app; and training (chip_smoke.py's train phase at a small
+size), with optax blocked too.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -384,6 +385,49 @@ def test_zoo_runs_without_jax():
     zoo_args = dict(TINY, BSRNN=dict(TINY["BSRNN"], sample_rate=44100, num_output=4,
                                      num_spks=4))
     proc = _run_blocked(_BLOCKED_ZOO.replace("ZOO_ARGS", repr(zoo_args)), extra=("aiohttp",))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_TRAIN = textwrap.dedent("""
+    import os, tempfile
+    import chip_smoke
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwop
+    from targetdiarization_tpu_torch.ops.kernels import dwconv as dwk, ffconvm as ffk, flash as flk
+    from targetdiarization_tpu_torch.runtime.registry import save_checkpoint
+    from targetdiarization_tpu_torch.train import SeparationTrainer, TrainConfig
+    # the CPU's plain versions, counted as the card's wrappers count launches
+    for mod, attr, wrapper in ((separation, "ffconvm", ffk.ffconvm),
+                               (separation, "flash_gated", flk.flash_gated),
+                               (dwop, "dwconv", dwk.dwconv)):
+        def counted(*a, _f=getattr(mod, attr), _w=wrapper, **k):
+            _w.launches += 1
+            return _f(*a, **k)
+        setattr(mod, attr, counted)
+    dx = dwk._dx
+    def dx_counted(g, w, *a):
+        dwk.dwconv.backward_launches += w.shape[1] == 1  # the card's dx launches at m = 1
+        return dx(g, w, *a)
+    dwk._dx = dx_counted
+    args = dict(dim=64, enc_channels=64, num_blocks=2, group_size=32, qk_dim=32, fsmn_inner=64)
+    root = tempfile.mkdtemp()
+    model = separation.MossFormer2(**args)
+    save_checkpoint(root, SeparationTrainer(model, device="cpu").model, "MossFormer2", args)
+    launches, _ = chip_smoke.check_train(
+        device="cpu", checkpoint=root, batch=2, seconds=0.25, steps=2,
+        convtasnet_args=dict(enc_channels=32, bottleneck=16, hidden=32, n_blocks=3, n_repeats=1))
+    assert launches == {"ffconvm": 20, "flash_gated": 4, "flash_group": 0, "dwconv": 8,
+                        "dwconv_dx": 4}, launches
+""")
+
+
+def test_training_runs_without_jax_or_optax():
+    """chip_smoke.py's train phase at a small size on the CPU: gradients
+    against plain, 2 fit steps with their launches counted, save and
+    restore, the inference export through the engine, and ConvTasNet's
+    steps, with optax blocked too."""
+    proc = _run_blocked(_BLOCKED_TRAIN, extra=("aiohttp", "optax"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 
