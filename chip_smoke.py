@@ -32,7 +32,12 @@ ConvTasNet and MossFormer checkpoints through `infer`, and drive training
 then `SeparationTrainer` on the 512/24 separator in float32 (gradients
 through the kernels' Functions against the plain path, four steps with
 their launches, save and restore, the inference export through
-`SeparationEngine`), and two ConvTasNet steps.
+`SeparationEngine`), and two ConvTasNet steps, and drive the bootstrap
+recipes (`recipes`): `train/recipes.py`'s five recipes that train through
+a kernel, each at its shipped checkpoint's width (the separator also at
+its own 64/4 default) for 5 steps from synthesized fixtures, with the
+kernels and under the plain versions, their checkpoints served back by
+their engines.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -41,8 +46,11 @@ Run from the repository root on a machine with one NVIDIA card:
 Each phase prints one JSON line with `elapsed_s` since the start: the build,
 each kernel's registers and spills from ptxas and, by `cuobjdump`, the
 tensor-core instructions of the built FFConvM and FLASH kernels; each kernel
-against its plain version at the main path's shapes and types, with its host-inclusive time (`ms`), its device time from
-20 launches replayed in one CUDA graph (`device_ms`) and its bounds; the
+against its plain version at the main path's shapes and types and at the
+recipes' separators' (FFConvM and gated FLASH at 256/12 and 64/4), with its
+host-inclusive time (`ms`), its device time from 20 launches replayed in
+one CUDA graph (`device_ms`) and its bounds; both FLASH forms at the other
+depths and group sizes they take (`flash_range`, agreement only); the
 separator (launch counts, wall times, a profiler breakdown of one call,
 agreement with the plain paths), the ASR stage, the front end and `infer`
 (three calls: wall times, kernel launches per trace span, a profiler
@@ -65,7 +73,9 @@ of them, kernels against plain with `check_infer`'s limits), and training
 gradient cosine with the kernels against plain, the launches a step, the
 forward, backward and optimizer ms of a step, the peak memory, the
 export's SI-SDR against the trained model; ConvTasNet's gradients and
-launches).
+launches), and the recipes (each recipe's ms a step, peak memory,
+launches a step against the prediction from the model, step losses with
+the kernels and plain, metrics, the served checkpoint's agreement).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -190,20 +200,33 @@ def environment() -> dict:
 
 # ---------------- kernels against their plain versions ----------------
 
-FFCONVM_SHAPES = (  # (name, cin, cout, norm) at 512/24
-    ("to_hidden", 512, 2048, "scalenorm"),
-    ("to_qk", 512, 128, "scalenorm"),
-    ("to_out", 1024, 512, "scalenorm"),
-    ("to_u", 256, 256, "layernorm"),
-)
 # (variant, activation type, weights rounded to bf16, tensor-core passes):
 # the float32 engine, the main path (the bf16 engine's promoted float32
 # stream with bf16-rounded weights), and bf16 activations
 FFCONVM_VARIANTS = (("float32", "float32", False, 3), ("main", "float32", True, 2),
                     ("bfloat16", "bfloat16", True, 1))
+# (name, B, T, cin, cout, norm, variants): the 512/24 main path at the 160k
+# bucket in every variant, and the training recipes' separators (float32
+# weights and activations) at their batch of 8 x 1 s, 2048 frames: the
+# shipped sep-bootstrap 256/12 and the recipe's default 64/4
+_ALL, _F32 = ("float32", "main", "bfloat16"), ("float32",)
+FFCONVM_SHAPES = (
+    ("to_hidden", 2, 20224, 512, 2048, "scalenorm", _ALL),
+    ("to_qk", 2, 20224, 512, 128, "scalenorm", _ALL),
+    ("to_out", 2, 20224, 1024, 512, "scalenorm", _ALL),
+    ("to_u", 2, 20224, 256, 256, "layernorm", _ALL),
+    ("recipe 256/12 to_hidden", 8, 2048, 256, 1024, "scalenorm", _F32),
+    ("recipe 256/12 to_qk", 8, 2048, 256, 128, "scalenorm", _F32),
+    ("recipe 256/12 to_out", 8, 2048, 512, 256, "scalenorm", _F32),
+    ("recipe 256/12 to_u", 8, 2048, 256, 256, "layernorm", _F32),
+    ("recipe 64/4 to_hidden", 8, 2048, 64, 256, "scalenorm", _F32),
+    ("recipe 64/4 to_qk", 8, 2048, 64, 32, "scalenorm", _F32),
+    ("recipe 64/4 to_out", 8, 2048, 128, 64, "scalenorm", _F32),
+    ("recipe 64/4 to_u", 8, 2048, 64, 64, "layernorm", _F32),
+)
 
 
-def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
+def check_ffconvm(shapes: tuple = FFCONVM_SHAPES) -> list[dict]:
     import torch
 
     from targetdiarization_tpu_torch.ops.kernels.ffconvm import (TAPS, ffconvm, ffconvm_plain,
@@ -211,8 +234,9 @@ def check_ffconvm(batch: int = 2, t: int = 20224) -> list[dict]:
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, cin, cout, norm in FFCONVM_SHAPES:
-        for variant, dname, bf16_weights, passes in FFCONVM_VARIANTS:
+    for name, batch, t, cin, cout, norm, variants in shapes:
+        for variant, dname, bf16_weights, passes in (v for v in FFCONVM_VARIANTS
+                                                     if v[0] in variants):
             dtype = getattr(torch, dname)
 
             def rnd(*shape, scale=1.0):
@@ -288,10 +312,12 @@ GATED_FLASH = {"float32": "flash_kernelIfLb1E", "bfloat16": "flash_kernelI13__nv
 
 
 def flash_smem_bytes(g: int, d: int, gated: bool, dtype_name: str) -> int:
-    """csrc/flash_gated.cu's smem_bytes: [A | lq] as bf16 halves, two ring
-    stages of v and u (128 e columns x 64 deep), 1024 bytes of alignment."""
+    """csrc/flash_gated.cu's smem_bytes: [A | lq] as bf16 halves (lq's d
+    columns padded to a multiple of 64), two ring stages of v and u (128 e
+    columns x 64 deep), 1024 bytes of alignment."""
     parts = 2 if dtype_name == "float32" else 1
-    return parts * ((g + (d if gated else 0)) // 64) * 8192 + 2 * parts * 2 * 16384 + 1024
+    dpad = -(-d // 64) * 64
+    return parts * ((g + (dpad if gated else 0)) // 64) * 8192 + 2 * parts * 2 * 16384 + 1024
 
 
 def build_report() -> dict:
@@ -364,15 +390,73 @@ def design_bound(mma_flops: float, flops: float, nbytes: float, dtype_name: str)
             "fma_bound_ms": fma_ms, "fma_bound_by": fma_by}
 
 
-def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
-                e: int = 1024, masked_tail: int = 225) -> list[dict]:
+# (label, B, G, g, d, e, masked tail keys) of gated FLASH: the 512/24 main
+# path at the 160k bucket (a 160k window: 19999 of 20224 frames valid), and
+# the training recipes' separators at their batch of 8 x 1 s (1999 encoder
+# frames): sep-bootstrap's 256/12 (16 groups of 128, d 128, e 512) and the
+# recipe's default 64/4 (32 groups of 64, d 32, e 128)
+FLASH_SHAPES = (("512/24, 160k bucket", 2, 79, 256, 128, 1024, 225),
+                ("recipe sep-bootstrap 256/12, batch 8 of 1 s", 8, 16, 128, 128, 512, 49),
+                ("recipe default 64/4, batch 8 of 1 s", 8, 32, 64, 32, 128, 49))
+# (form, g, d, e) that the kernels take and no model makes, at B 2, G 6 with
+# a masked tail: depths below 128 at each group size, a partial depth chunk
+# after a full one (d 80-112), d 16, and the two-output form below d 128
+FLASH_RANGE = (("gated", 64, 16, 128), ("gated", 64, 64, 256), ("gated", 128, 64, 512),
+               ("gated", 128, 80, 128), ("gated", 192, 48, 384), ("gated", 256, 96, 1024),
+               ("gated", 256, 112, 256), ("two-output", 64, 32, 128),
+               ("two-output", 128, 16, 256), ("two-output", 256, 96, 512))
+
+
+def check_flash_range(batch: int = 2, n_groups: int = 6) -> list[dict]:
+    """Both FLASH forms at the FLASH_RANGE shapes in float32 and bf16,
+    against their plain versions with TOL: the depths, group sizes and
+    partial chunks the kernels take beside the ones the models make."""
+    import torch
+
+    from targetdiarization_tpu_torch.ops.kernels.flash import (flash_gated, flash_gated_plain,
+                                                               flash_group_attention,
+                                                               flash_group_plain)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for (form, g, d, e), dtype in ((s, t) for s in FLASH_RANGE
+                                   for t in (torch.float32, torch.bfloat16)):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        q, k = rnd(batch, n_groups, g, d, scale=4.0), rnd(batch, n_groups, g, d, scale=4.0)
+        v, u = rnd(batch, n_groups, g, e), rnd(batch, n_groups, g, e)
+        mask = torch.ones(batch, n_groups, 1, g, device="cuda", dtype=dtype)
+        mask[:, -1, :, g - 17:] = 0
+        if form == "gated":
+            args = (q, k, v, u, mask, rnd(batch, n_groups, g, d), rnd(batch, d, e, scale=0.1),
+                    rnd(batch, d, e, scale=0.1))
+            pairs = [(flash_gated(*args), flash_gated_plain(*args))]
+        else:
+            pairs = list(zip(flash_group_attention(q, k, v, u, mask),
+                             flash_group_plain(q, k, v, u, mask)))
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in pairs]
+        dname = str(dtype).split(".")[1]
+        row = {"form": form, "dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d, "e": e,
+               "max_abs_err": max(x[0] for x in errs), "rel_err": max(x[1] for x in errs)}
+        emit("flash_range", **row)
+        if not row["rel_err"] <= TOL[dname]:
+            raise AssertionError(f"flash {form} g {g} d {d} e {e} {dname}: kernel vs plain rel "
+                                 f"err {row['rel_err']:.3g} > {TOL[dname]}")
+        rows.append(row)
+    return rows
+
+
+def check_flash(shapes: tuple = FLASH_SHAPES) -> list[dict]:
     import torch
 
     from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated, flash_gated_plain
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype in (torch.float32, torch.bfloat16):
+    for (label, batch, n_groups, g, d, e, masked_tail), dtype in (
+            (shape, dtype) for shape in shapes for dtype in (torch.float32, torch.bfloat16)):
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
@@ -380,7 +464,7 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
         lq = rnd(batch, n_groups, g, d)
         v, u = rnd(batch, n_groups, g, e), rnd(batch, n_groups, g, e)
         mask = torch.ones(batch, n_groups, 1, g, device="cuda", dtype=dtype)
-        mask[:, -1, :, g - masked_tail:] = 0  # a 160k window: 19999 of 20224 frames valid
+        mask[:, -1, :, g - masked_tail:] = 0
         kv, ku = rnd(batch, d, e, scale=0.1), rnd(batch, d, e, scale=0.1)
         args = (q, k, v, u, mask, lq, kv, ku)
         got = flash_gated(*args)
@@ -393,8 +477,8 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
         mma_flops = 2.0 * bg * g * (g * d + 2 * (g + d) * e)
         flops = mma_flops + 6.0 * bg * g * e
         nbytes = isz * (bg * g * (3 * d + 3 * e + 1) + 2 * batch * d * e)
-        row = {"dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d, "e": e,
-               "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
+        row = {"shape": label, "dtype": dname, "B": batch, "G": n_groups, "g": g, "d": d,
+               "e": e, "masked_tail": masked_tail, "flops": flops, "bytes": nbytes,
                "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(lambda: flash_gated(*args)),
                "device_ms": graph_ms(lambda: flash_gated(*args)),
@@ -402,7 +486,7 @@ def check_flash(batch: int = 2, n_groups: int = 79, g: int = 256, d: int = 128,
                **design_bound(mma_flops, flops, nbytes, dname), "library_ms": None}
         emit("flash_gated", **row)
         if not rel <= TOL[dname]:
-            raise AssertionError(f"flash_gated {dname}: kernel vs plain rel err "
+            raise AssertionError(f"flash_gated {label} {dname}: kernel vs plain rel err "
                                  f"{rel:.3g} > {TOL[dname]}")
         rows.append(row)
         del args, q, k, lq, v, u, got, want
@@ -434,6 +518,17 @@ DWCONV_SHAPES = (  # (name, B, T, K, m, C, dilation, pad_l, pad_r, types) on the
     # 64 and 128 run on phase tiles (the dilated tile's halo does not fit)
     *((f"ConvTasNet TCN, dilation {d}", 1, 7999, 3, 1, 512, d, d, d, ("float32", "bfloat16"))
       for d in (1, 8, 32, 64, 128)),
+    # the recipes' training steps, float32 (the recipes phase): FsmnVADNet at
+    # batch 16 of 2 s (198 frames), the Paraformer's SAN-M memory at batch 16
+    # of 4 s (67 LFR frames; the decoder's over 67 token slots), SenseVoice's
+    # (67 + 4 rows), Apollo's at batch 8 of 2 s (8 x 80 bands, 201 frames),
+    # the 64/4 separator's FSMN convs at batch 8 of 1 s (2048 frames)
+    ("recipe: VAD memory, 16 x 2 s", 16, 198, 13, 1, 64, 1, 10, 2, ("float32",)),
+    ("recipe: SAN-M memory, Paraformer 16 x 4 s", 16, 67, 11, 1, 256, 1, 5, 5, ("float32",)),
+    ("recipe: SenseVoice memory, 16 x 4 s", 16, 71, 11, 1, 192, 1, 5, 5, ("float32",)),
+    ("recipe: Apollo ConvActNorm, 8 x 2 s", 640, 201, 7, 1, 96, 1, 3, 3, ("float32",)),
+    ("recipe: separator 64/4 conv0, 8 x 1 s", 8, 2048, 39, 1, 64, 1, 19, 19, ("float32",)),
+    ("recipe: separator 64/4 conv1, 8 x 1 s", 8, 2048, 39, 2, 64, 2, 38, 38, ("float32",)),
 )
 # (B, T, C) of Apollo's depthwise convs held above
 APOLLO_DW_SHAPES = {(b, t, c) for name, b, t, _, _, c, *_ in DWCONV_SHAPES
@@ -2811,11 +2906,19 @@ def check_zoo(device: str = "cuda", args: dict | None = None,
 
 # train/recipes.py:147-171's settings (bootstrap_separator) on the 512/24 separator
 TRAIN_SETTINGS = dict(optimizer="adam", learning_rate=5e-4, grad_clip=5.0, save_every=0)
-# (name, B, T, K, C, dilation) of dwconv's dx launches: the separator's conv0 at
-# batch 8 of 1 s (2000 encoder frames padded to 2048), ConvTasNet's K 3 TCN convs
-# at batch 2 of 1 s (1999 frames); 64 and 128 run on phase tiles
-DX_SHAPES = (("separator conv0", 8, 2048, 39, 256, 1),
-             *((f"ConvTasNet TCN, dilation {d}", 2, 1999, 3, 512, d) for d in (1, 32, 64, 128)))
+# (name, B, T, K, C, dilation, pads or None for SAME) of dwconv's dx launches:
+# the separator's conv0 at batch 8 of 1 s (2000 encoder frames padded to
+# 2048), ConvTasNet's K 3 TCN convs at batch 2 of 1 s (1999 frames; 64 and
+# 128 run on phase tiles), and the recipes' m = 1 convs at their training
+# steps' shapes (DWCONV_SHAPES)
+DX_SHAPES = (("separator conv0", 8, 2048, 39, 256, 1, None),
+             *((f"ConvTasNet TCN, dilation {d}", 2, 1999, 3, 512, d, None)
+               for d in (1, 32, 64, 128)),
+             ("recipe: VAD memory, 16 x 2 s", 16, 198, 13, 64, 1, (10, 2)),
+             ("recipe: SAN-M memory, Paraformer 16 x 4 s", 16, 67, 11, 256, 1, None),
+             ("recipe: SenseVoice memory, 16 x 4 s", 16, 71, 11, 192, 1, None),
+             ("recipe: Apollo ConvActNorm, 8 x 2 s", 640, 201, 7, 96, 1, None),
+             ("recipe: separator 64/4 conv0, 8 x 1 s", 8, 2048, 39, 64, 1, None))
 
 
 def sync(device: str) -> None:
@@ -2828,9 +2931,10 @@ def sync(device: str) -> None:
 def check_dx() -> list[dict]:
     """dwconv's dx through the kernel (the backward's `_dx`: taps flipped and
     made per call, one launch) against autograd of `dwconv_plain` on the
-    card, in float32 and bf16, SAME pads: host-inclusive ms of `_dx`,
-    device ms of its launch alone, the plain dx's ms, the bytes bound and
-    the library's `torch.nn.grad.conv1d_input` on the padded input."""
+    card, in float32 and bf16, SAME pads unless the row gives its own:
+    host-inclusive ms of `_dx`, device ms of its launch alone, the plain
+    dx's ms, the bytes bound and the library's `torch.nn.grad.conv1d_input`
+    on the padded input (host-inclusive and device ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -2838,9 +2942,9 @@ def check_dx() -> list[dict]:
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for name, batch, t, k, c, dil in DX_SHAPES:
+    for name, batch, t, k, c, dil, pads in DX_SHAPES:
         span = (k - 1) * dil
-        pad_l, pad_r = span // 2, span - span // 2
+        pad_l, pad_r = pads or (span // 2, span - span // 2)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(batch, t, c, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(k, 1, c, generator=gen, device="cuda") * 0.2).to(dtype)
@@ -2863,16 +2967,19 @@ def check_dx() -> list[dict]:
             gt = g.transpose(1, 2)
             wt = w.permute(2, 1, 0).contiguous()
             size = (batch, c, t + pad_l + pad_r)
+
+            def library():
+                return torch.nn.grad.conv1d_input(size, wt, gt, dilation=dil, groups=c)
+
             row = {"shape": name, "dtype": dname, "B": batch, "T": t, "K": k, "C": c,
-                   "dilation": dil, "flops": flops, "bytes": nbytes,
+                   "dilation": dil, "pads": [pad_l, pad_r], "flops": flops, "bytes": nbytes,
                    "max_abs_err": err, "rel_err": rel,
                    "ms": time_ms(lambda: dwmod._dx(g, w, dil, pad_l, pad_r, t)),
                    "device_ms": graph_ms(lambda: dwmod._launch(g, taps, dil, span - pad_l,
                                                                span - pad_r)),
                    "plain_ms": time_ms(lambda: dwmod.dwconv_plain(g, flipped, dil,
                                                                   span - pad_l, span - pad_r)),
-                   "library_ms": time_ms(lambda: torch.nn.grad.conv1d_input(
-                       size, wt, gt, dilation=dil, groups=c)),
+                   "library_ms": time_ms(library), "library_device_ms": graph_ms(library),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit("dwconv_dx", **row)
             if not rel <= TOL[dname]:
@@ -3161,6 +3268,298 @@ def check_train(device: str = "cuda", checkpoint: str = CHECKPOINT, batch: int =
     return launches, dx_rows
 
 
+# ---------------- the bootstrap recipes: training through the kernels ----------------
+
+# the shipped checkpoints' configurations (their model.json; sep-bootstrap's
+# is not in the card's copy of the repository)
+RECIPE_MODELS = {
+    "vad": {},
+    "sep": dict(dim=256, enc_channels=256, num_blocks=12, kernel_size=16, num_spks=2,
+                group_size=128, qk_dim=128, fsmn_inner=256, sample_rate=16000),
+    "rest": dict(sr=16000, win_ms=20, feature_dim=96, layer=4),
+    "asr": dict(vocab_size=21001, dim=256, heads=4, ffn=1024, enc_layers=8, dec_layers=4),
+    "sv": dict(vocab_size=21001, dim=192, heads=4, ffn=768, enc_layers=6),
+}
+# bootstrap_separator's own default model (train/recipes.py), the 64/4
+RECIPE_SEP_DEFAULT = dict(dim=64, enc_channels=64, num_blocks=4, group_size=64, qk_dim=32,
+                          fsmn_inner=64)
+# (label, recipe, its arguments, the checkpoint whose configuration it
+# trains): full width, 5 steps, the recipes' batches; only the step and
+# eval counts are cut
+RECIPE_RUNS = (
+    ("vad", "bootstrap_vad", dict(steps=5, batch=16, seconds=2.0), "vad"),
+    ("sep 256/12", "bootstrap_separator", dict(steps=5, batch=8, seconds=1.0), "sep"),
+    ("sep 64/4", "bootstrap_separator", dict(steps=5, batch=8, seconds=1.0), None),
+    ("rest", "bootstrap_restorer", dict(steps=5, batch=8, seconds=2.0, feature_dim=96, layer=4),
+     "rest"),
+    ("asr", "bootstrap_asr", dict(steps=5, batch=16, seconds=4.0, eval_utts=4, dim=256,
+                                  enc_layers=8, dec_layers=4, ffn=1024, device_synth=True,
+                                  aug_frac=0.25), "asr"),
+    ("sv", "bootstrap_sensevoice", dict(steps=5, batch=16, seconds=4.0, eval_utts=4, dim=192,
+                                        enc_layers=6, ffn=768), "sv"),
+)
+# step 5's loss, kernels against plain, for the recipes whose only kernel is
+# dwconv: the recipes run with cuDNN's deterministic algorithms, and over
+# seeds 0-3 the gap read at most 3.7e-6 (tools/recipe_repeat.py, PERF.md);
+# a CIF token counted differently moves the Paraformer's loss by about
+# 1e-3. The separator's fifth step is only held finite (PERF.md: the
+# 512/24 MossFormer2's float32 gradient is ill-conditioned)
+STEP5_RTOL = 1e-4
+
+
+def recipe_fixtures(root: str) -> str:
+    """The recipes' two fixture recordings, synthesized: `chat_mix.wav` (two
+    voices taking turns, 10 s) and `female_a.wav` (the second voice alone,
+    8 s), at 16 kHz."""
+    from targetdiarization_tpu_torch.utils.audio_io import write_wav
+
+    os.makedirs(root, exist_ok=True)
+    write_wav(os.path.join(root, "chat_mix.wav"), conversation(10.0, seed=41), SR)
+    write_wav(os.path.join(root, "female_a.wav"), enrollment(8.0, seed=42), SR)
+    return root
+
+
+def recipe_launches(recipe: str, args: dict) -> dict:
+    """Kernel launches a training step of `recipe` makes at model `args`:
+    each depthwise conv forward once and, at m = 1, its dx once; the
+    separator's FFConvM (5 a layer pair) and gated FLASH (1) forward only
+    (their backward recomputes the plain version)."""
+    zero = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0}
+    if recipe == "bootstrap_separator":
+        n = args["num_blocks"]
+        return {**zero, "ffconvm": 5 * n, "flash_gated": n, "dwconv": 2 * n, "dwconv_dx": n}
+    convs = {"bootstrap_vad": args.get("n_layers", 4),
+             "bootstrap_restorer": 3 * args.get("layer", 4),
+             "bootstrap_asr": args.get("enc_layers", 4) + args.get("dec_layers", 2),
+             "bootstrap_sensevoice": args.get("enc_layers", 6)}[recipe]
+    return {**zero, "dwconv": convs, "dwconv_dx": convs}
+
+
+class RecipeProbe:
+    """Reads a recipe's training steps as it runs: each step's loss
+    unrounded (the log prints 3-4 decimals), the time between step ends and
+    the kernel launches between them; and the initial parameters."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.losses, self.ends, self.launches, self.init = [], [], [], None
+
+    def _end(self, loss) -> None:
+        from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
+
+        sync(self.device)
+        self.losses.append(float(loss))
+        self.ends.append(time.perf_counter())
+        self.launches.append({**read_launches(), "dwconv_dx": dwconv.backward_launches})
+
+    def patches(self):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        from targetdiarization_tpu_torch.train import recipes, trainer
+
+        stack = ExitStack()
+        probe = self
+        vag, apply, step = recipes._value_and_grad, recipes._apply, trainer.SeparationTrainer.train_step
+        init = trainer.init_params
+        pending = {}
+
+        def value_and_grad(loss_fn, params):
+            out, grads = vag(loss_fn, params)
+            pending["loss"] = out[0] if isinstance(out, tuple) else out
+            return out, grads
+
+        def apply_(*a, **k):
+            out = apply(*a, **k)
+            probe._end(pending.pop("loss"))
+            return out
+
+        def train_step(self_, batch):
+            out = step(self_, batch)
+            probe._end(out["loss"])
+            return out
+
+        def init_params(model, seed=0):
+            sd = init(model, seed)
+            probe.init = {k: v.clone() for k, v in sd.items()}
+            return sd
+
+        for obj, name, value in ((recipes, "_value_and_grad", value_and_grad),
+                                 (recipes, "_apply", apply_),
+                                 (trainer.SeparationTrainer, "train_step", train_step),
+                                 (trainer, "init_params", init_params)):
+            stack.enter_context(mock.patch.object(obj, name, value))
+        return stack
+
+    def per_step(self, start: dict) -> list[dict]:
+        marks = [start] + self.launches
+        return [{k: b[k] - a[k] for k in b} for a, b in zip(marks, marks[1:])]
+
+
+def run_recipe(label: str, recipe: str, args: dict, root: str, device: str,
+               plain: bool) -> dict:
+    """One recipe run into `root`, probed; under `plain_kernels()` if `plain`."""
+    from contextlib import nullcontext
+
+    import torch
+
+    from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
+    from targetdiarization_tpu_torch.train import recipes
+
+    probe = RecipeProbe(device)
+    logs: list = []
+    ckpt = os.path.join(root, label.replace(" ", "_").replace("/", "_") + ("_plain" if plain else ""))
+    kwargs = dict(args)
+    if recipe == "bootstrap_separator":
+        from targetdiarization_tpu_torch.models.separation import MossFormer2
+
+        kwargs["model"] = MossFormer2(**args["model"]) if "model" in args else None
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = {**read_launches(), "dwconv_dx": dwconv.backward_launches}
+    t0 = time.perf_counter()
+    with probe.patches(), (plain_kernels() if plain else nullcontext()):
+        metrics = getattr(recipes, recipe)(checkpoint_dir=ckpt, log_fn=logs.append,
+                                           device=device, **kwargs)
+    sync(device)
+    return {"metrics": metrics, "logs": logs, "losses": probe.losses, "init": probe.init,
+            "step_ms": [(b - a) * 1e3 for a, b in zip(probe.ends, probe.ends[1:])],
+            "per_step": probe.per_step(start), "total_s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+            "launches": {**read_launches(), "dwconv_dx": dwconv.backward_launches},
+            "checkpoint": ckpt}
+
+
+def served_agreement(recipe: str, path: str, device: str) -> dict:
+    """The recipe's checkpoint loaded through the registry and served by its
+    engine in float32, the kernels against plain, with the limits the
+    script uses for that engine: VAD probabilities within 1e-4, separated
+    and restored audio at 40 dB, ASR texts and timestamps equal."""
+    import torch
+
+    from targetdiarization_tpu_torch.runtime.registry import from_pretrained
+
+    def both(fn):
+        got = fn()
+        with plain_kernels():
+            want = fn()
+        return got, want
+
+    clip = conversation(3.0, seed=43)
+    if recipe == "bootstrap_vad":
+        from targetdiarization_tpu_torch.models.vad import VADEngine
+
+        eng = VADEngine(from_pretrained(path), device=device, compute_dtype="float32")
+        got, want = both(lambda: eng.frame_probs(clip))
+        err = float(np.abs(got - want).max())
+        return {"engine": "VADEngine.frame_probs", "max_abs": err, "ok": err <= 1e-4}
+    if recipe == "bootstrap_separator":
+        from targetdiarization_tpu_torch.models.separation import SeparationEngine
+
+        eng = SeparationEngine.from_pretrained(path, device=device, compute_dtype="float32")
+        got, want = both(lambda: np.stack(eng.separate(clip)))
+        db = min(si_sdr(got[i], want[i]) for i in range(len(want)))
+        return {"engine": "SeparationEngine.separate", "min_si_sdr_db": db, "ok": db >= 40.0}
+    if recipe == "bootstrap_restorer":
+        from targetdiarization_tpu_torch.models.restoration import RestorationEngine
+
+        eng = RestorationEngine(from_pretrained(path), device=device, compute_dtype="float32")
+        got, want = both(lambda: eng.restore(clip))
+        db = si_sdr(got, want)
+        return {"engine": "RestorationEngine.restore", "si_sdr_db": db, "ok": db >= 40.0}
+    from targetdiarization_tpu_torch.models.asr import ASREngine
+
+    eng = ASREngine.from_pretrained(path, device=device, compute_dtype="float32")
+    rng = np.random.default_rng(44)
+    utts = [synth_utterance("".join(BOOT_CHARS[int(i)] for i in rng.integers(0, 32, n)), rng)[0]
+            for n in (4, 7, 10)]
+    got, want = both(lambda: [eng.asr_detection(u)[0] for u in utts])
+    return {"engine": "ASREngine.asr_detection", "texts": [r["text"] for r in got],
+            "ok": got == want}
+
+
+def params_moved(run: dict) -> bool:
+    """The checkpoint's parameters all finite, and some differ from the
+    initial draw."""
+    from targetdiarization_tpu_torch.runtime.registry import from_pretrained
+
+    saved = from_pretrained(run["checkpoint"]).state_dict()
+    finite = all(bool(v.isfinite().all()) for v in saved.values())
+    return finite and any(not np.array_equal(saved[k].numpy(), v.cpu().numpy())
+                          for k, v in run["init"].items())
+
+
+def check_recipes(device: str = "cuda", runs: tuple = RECIPE_RUNS) -> dict:
+    """The recipes phase: each recipe of `runs` on the device from the
+    synthesized fixtures, with the kernels and then under `plain_kernels()`
+    from the same seed: step 1's loss within 1e-4 (relative), step 5's within
+    STEP5_RTOL for the dwconv-only recipes, every logged loss finite, the
+    saved parameters moved, the launches a training step as
+    `recipe_launches` predicts, and the checkpoint served by its engine,
+    kernels against plain. Returns the launches of the kernel runs."""
+    import shutil
+    import tempfile
+
+    from targetdiarization_tpu_torch.train import recipes
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="td_recipes_")
+    total: dict = {}
+    try:
+        recipes.ASSETS = recipe_fixtures(os.path.join(root, "assets"))
+        for label, recipe, args, config in runs:
+            args = dict(args)
+            model_args = RECIPE_MODELS[config] if config else {}
+            if recipe == "bootstrap_separator":
+                args.setdefault("model", model_args or RECIPE_SEP_DEFAULT)
+                model_args = args["model"]
+            want = recipe_launches(recipe, {**model_args, **args})
+            kern = run_recipe(label, recipe, args, root, device, plain=False)
+            plain = run_recipe(label, recipe, args, root, device, plain=True)
+            served = served_agreement(recipe, kern["checkpoint"], device)
+            steps = args["steps"]
+            step1 = abs(kern["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+            step5 = abs(kern["losses"][-1] - plain["losses"][-1]) / abs(plain["losses"][-1])
+            logged = [float(x) for line in kern["logs"] if "loss=" in line
+                      for x in [line.split("loss=")[1].split()[0]]]
+            row = {"recipe": recipe, "label": label, "model": model_args, "steps": steps,
+                   "batch": args["batch"], "seconds": args["seconds"],
+                   "ms_per_step": statistics.median(kern["step_ms"]),  # steps 2 to the last
+                   "step_ms": kern["step_ms"],
+                   "plain_ms_per_step": statistics.median(plain["step_ms"]),
+                   "peak_bytes": kern["peak_bytes"], "recipe_s": kern["total_s"],
+                   "plain_recipe_s": plain["total_s"],
+                   "launches_per_step": kern["per_step"][:steps], "predicted_per_step": want,
+                   "losses": kern["losses"], "plain_losses": plain["losses"],
+                   "step1_rel": step1, "step5_rel": step5, "metrics": kern["metrics"],
+                   "plain_metrics": plain["metrics"], "served": served}
+            emit("recipe", **row)
+            fails = []
+            if len(kern["losses"]) != steps or len(logged) != steps \
+                    or not np.isfinite(kern["losses"] + plain["losses"] + logged).all():
+                fails.append(f"losses {kern['losses']} (logged {logged}) not {steps} finite")
+            if not step1 <= 1e-4:
+                fails.append(f"step 1's loss {step1:.3g} from plain")
+            if recipe != "bootstrap_separator" and not step5 <= STEP5_RTOL:
+                fails.append(f"step {steps}'s loss {step5:.3g} from plain")
+            if any(p != want for p in kern["per_step"][:steps]) or any(
+                    any(p.values()) for p in plain["per_step"]):
+                fails.append(f"launches a step {kern['per_step'][:steps]}, want {want}")
+            if not params_moved(kern):
+                fails.append("the saved parameters did not move or are not finite")
+            if not served["ok"]:
+                fails.append(f"served kernels against plain: {served}")
+            if fails:
+                raise AssertionError(f"recipe {label}: " + "; ".join(fails))
+            for k, v in kern["launches"].items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("recipes_phase", phase_s=time.time() - t0, launches=total)
+    return total
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -3219,19 +3618,31 @@ def kernel_line(rows: dict, path_launches: dict) -> dict:
         entry("ffconvm", "targetdiarization_tpu_torch/csrc/ffconvm.cu",
               "targetdiarization_tpu/ops/pallas/ffconvm.py:117", "ffconvm",
               lambda r: per_layer[r["shape"]] if r["variant"] == "main" else 0,
-              "float32, bf16-exact weights", pair),
+              "float32, bf16-exact weights", pair)
+        | {"recipe_shapes": [{k: r[k] for k in ("shape", "dtype", "B", "T", "cin", "cout", "norm",
+                                                 "max_abs_err", "rel_err", "ms", "device_ms",
+                                                 "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}
+                             for r in rows["ffconvm"] if r["shape"].startswith("recipe")]},
         entry("flash_gated", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:97", "flash_gated",
-              lambda r: r["dtype"] == "float32", "float32", pair),
+              lambda r: r["dtype"] == "float32" and r["shape"] == FLASH_SHAPES[0][0], "float32",
+              pair)
+        | {"recipe_shapes": [{k: r[k] for k in ("shape", "dtype", "B", "G", "g", "d", "e",
+                                                 "max_abs_err", "rel_err", "ms", "device_ms",
+                                                 "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}
+                             for r in rows["flash_gated"] if r["shape"] != FLASH_SHAPES[0][0]]},
         entry("dwconv", "targetdiarization_tpu_torch/csrc/dwconv.cu",
               "targetdiarization_tpu/ops/pallas/dwconv.py:98", "dwconv",
               lambda r: per_layer.get(r["shape"], 0) if r["dtype"] == "float32" else 0,
               "float32", pair + " (FSMN conv0 + conv1; float32 FMA work)", "float32")
         | {"apollo_shapes": apollo, "sensevoice_shapes": sensevoice,
-           "convtasnet_shapes": shape_rows("ConvTasNet"),
+           "convtasnet_shapes": shape_rows("ConvTasNet"), "recipe_shapes": shape_rows("recipe"),
            "dx_shapes": [{k: r[k] for k in ("shape", "dtype", "B", "T", "K", "C", "dilation",
                                              "max_abs_err", "rel_err", "ms", "device_ms",
-                                             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "library_device_ms")}
                          for r in rows["dwconv_dx"]]},
         entry("flash_group", "targetdiarization_tpu_torch/csrc/flash_gated.cu",
               "targetdiarization_tpu/ops/pallas/flash.py:205", "flash_group",
@@ -3248,7 +3659,8 @@ def main() -> None:
     env = environment()
     build_report()
     rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
-            "dwconv": check_dwconv(), "flash_group": check_flash_group()}
+            "dwconv": check_dwconv(), "flash_group": check_flash_group(),
+            "flash_range": check_flash_range()}
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr(),
                      "FusedFrontend": check_frontend(),
                      "TargetDiarization.infer": check_infer(),
@@ -3256,6 +3668,7 @@ def main() -> None:
                      "surface": check_surface(), "engines": check_engines(),
                      "zoo": check_zoo()}
     path_launches["train"], rows["dwconv_dx"] = check_train()
+    path_launches["recipes"] = check_recipes()
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels
 // (FFConvM, FLASH): shared-memory descriptors and warpgroup products
-// (wgmma), their fences, cp.async, and the bf16 split that carries float32
-// operands through the bf16 tensor cores.
+// (wgmma, bf16 or fp16 inputs), their fences, cp.async, and the bf16 and
+// fp16 splits that carry float32 operands through the 16-bit tensor cores.
 #pragma once
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace td {
@@ -25,50 +26,68 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
            (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+#define TD_REGS64                                                                          \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TD_REGS32                                                                          \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TD_OUT8(i)                                                                         \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
+        "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
 // acc (64 x 128 f32 over the warpgroup) = A (64 x 16) . B (128 x 16)^T, plus acc
-// unless scale_d is 0 (which starts a sum without zeroing the registers)
+// unless scale_d is 0 (which starts a sum without zeroing the registers);
+// A and B bf16, or fp16 with kHalf
+template <bool kHalf = false>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
                                                  int scale_d = 1) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (kHalf) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " TD_REGS64
+            ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : TD_OUT8(0), TD_OUT8(8), TD_OUT8(16), TD_OUT8(24), TD_OUT8(32), TD_OUT8(40),
+              TD_OUT8(48), TD_OUT8(56)
+            : "l"(a), "l"(b), "r"(scale_d));
+    } else {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TD_REGS64
+            ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : TD_OUT8(0), TD_OUT8(8), TD_OUT8(16), TD_OUT8(24), TD_OUT8(32), TD_OUT8(40),
+              TD_OUT8(48), TD_OUT8(56)
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
 }
 
 // acc (64 x 64 f32 over the warpgroup) = A (64 x 16) . B (64 x 16)^T, plus acc
-// unless scale_d is 0 (which starts a sum without zeroing the registers)
+// unless scale_d is 0; A and B bf16, or fp16 with kHalf
+template <bool kHalf = false>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
                                                 int scale_d = 1) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (kHalf) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " TD_REGS32
+            ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : TD_OUT8(0), TD_OUT8(8), TD_OUT8(16), TD_OUT8(24)
+            : "l"(a), "l"(b), "r"(scale_d));
+    } else {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TD_REGS32
+            ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : TD_OUT8(0), TD_OUT8(8), TD_OUT8(16), TD_OUT8(24)
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
 }
+
+#undef TD_OUT8
+#undef TD_REGS32
+#undef TD_REGS64
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -106,6 +125,16 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
     const float2 hf = __bfloat1622float2(h);
     hi = *reinterpret_cast<uint32_t*>(&h);
     lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// (a, b) = hi + lo with hi, lo fp16 pairs: 11 bits each, so hi + lo
+// keeps 22 of a float32's 24 where a and b lie within fp16's range
+__device__ __forceinline__ void split_f16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    __half2 h = __floats2half2_rn(a, b);
+    const float2 hf = __half22float2(h);
+    hi = *reinterpret_cast<uint32_t*>(&h);
+    __half2 l = __floats2half2_rn(a - hf.x, b - hf.y);
+    lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 }  // namespace td

@@ -166,7 +166,10 @@ class CIFPredictor(nn.Module):
     mass follows the last valid frame, so a last token short of the
     threshold still fires; its fire frame is clamped to the last valid one.
     With `target_len` (B,) (forced alignment) the alphas are scaled, in
-    their own type, to sum to it, and no tail frame is added."""
+    their own type, to sum to it, and no tail frame is added. Returns
+    tokens, fire frames, token counts, the alphas the CIF integrated and
+    `alphas_raw`, the alphas before that scaling (the training recipe's
+    quantity and alignment losses read them)."""
 
     def __init__(self, dim: int = 512, threshold: float = 1.0, tail_threshold: float = 0.45):
         super().__init__()
@@ -176,12 +179,12 @@ class CIFPredictor(nn.Module):
 
     def forward(self, enc, mask, target_len=None):
         h = torch.relu(self.conv(enc.transpose(1, 2)).transpose(1, 2))
-        alphas = torch.sigmoid(self.alpha(h))[..., 0] * mask
+        alphas = alphas_raw = torch.sigmoid(self.alpha(h))[..., 0] * mask
         if target_len is not None:
             total = torch.clamp_min(alphas.sum(dim=1, keepdim=True), 1e-6)
             alphas = alphas / total * target_len.to(alphas.dtype)[:, None]
             tokens, fire_frames, n_tokens = cif_fire(enc.float(), alphas.float(), self.threshold)
-            return tokens.to(enc.dtype), fire_frames, n_tokens, alphas
+            return tokens.to(enc.dtype), fire_frames, n_tokens, alphas, alphas_raw
         enc_f, alphas_f = enc.float(), alphas.float()
         b, t = alphas.shape
         # the valid-frame count in the mask's type, as the JAX model sums it:
@@ -195,7 +198,7 @@ class CIFPredictor(nn.Module):
         tokens, fire_frames, n_tokens = cif_fire(enc_f, alphas_f, self.threshold)
         last_valid = torch.clamp_min(valid - 1, 0)[:, None].to(torch.int32)
         fire_frames = torch.where(fire_frames >= 0, torch.minimum(fire_frames, last_valid), -1)
-        return tokens[:, :t].to(enc.dtype), fire_frames[:, :t], n_tokens, alphas
+        return tokens[:, :t].to(enc.dtype), fire_frames[:, :t], n_tokens, alphas, alphas_raw
 
 
 # ---------------- the model ----------------
@@ -216,10 +219,11 @@ class Paraformer(nn.Module):
 
     def forward(self, feats, mask, target_len=None) -> dict:
         """feats (B, T, 560), mask (B, T) -> logits (B, T, V) over T token
-        slots, n_tokens (B,), fire_frames (B, T), alphas, encoder_out; with
+        slots, n_tokens (B,), fire_frames (B, T), alphas, alphas_raw (before
+        `target_len` scaling), encoder_out; with
         `target_len` (B,), the CIF is forced to that many tokens."""
         enc = self.encoder(feats, mask)
-        tokens, fire_frames, n_tokens, alphas = self.predictor(enc, mask, target_len)
+        tokens, fire_frames, n_tokens, alphas, alphas_raw = self.predictor(enc, mask, target_len)
         u = tokens.shape[1]
         tok_mask = (torch.arange(u, device=feats.device)[None, :]
                     < n_tokens[:, None]).to(feats.dtype)
@@ -228,7 +232,7 @@ class Paraformer(nn.Module):
             x = block(x, tok_mask, context=enc)
         logits = self.vocab_proj(self.dec_ln(x))
         return {"logits": logits, "n_tokens": n_tokens, "fire_frames": fire_frames,
-                "alphas": alphas, "encoder_out": enc}
+                "alphas": alphas, "alphas_raw": alphas_raw, "encoder_out": enc}
 
 
 class SenseVoice(nn.Module):

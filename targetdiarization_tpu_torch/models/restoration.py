@@ -210,8 +210,11 @@ class Apollo(nn.Module):
         n_uniform = 79
         return bw, n_uniform, self.enc_dim - bw * n_uniform
 
-    def forward(self, wav):
-        """wav (B, T) -> (B, T) restored, in float32 (or the model's type)."""
+    def forward(self, wav, return_spec: bool = False):
+        """wav (B, T) -> (B, T) restored, in float32 (or the model's type);
+        with `return_spec`, the estimated spectrum's real and imaginary
+        planes (B, F, frames, 2) in place of the waveform (the training
+        recipe's losses are on the spectrum)."""
         b, nsample = wav.shape
         bw, n_uni, tail = self._bands()
         spec = stft(wav, self.win, self.stride)  # (B, F, T) complex
@@ -240,9 +243,11 @@ class Apollo(nn.Module):
         tail_out = feat[:, -1] @ self.tail_out_w + self.tail_out_b
         tval, tgate = tail_out.chunk(2, dim=-1)
         tail_ri = tval * torch.sigmoid(tgate)
-        est = torch.complex(torch.cat([uni_real, tail_ri[..., :tail].transpose(1, 2)], dim=1),
-                            torch.cat([uni_imag, tail_ri[..., tail:].transpose(1, 2)], dim=1))
-        return istft(est, self.win, self.stride, length=nsample)
+        est_real = torch.cat([uni_real, tail_ri[..., :tail].transpose(1, 2)], dim=1)
+        est_imag = torch.cat([uni_imag, tail_ri[..., tail:].transpose(1, 2)], dim=1)
+        if return_spec:
+            return torch.stack([est_real, est_imag], dim=-1)
+        return istft(torch.complex(est_real, est_imag), self.win, self.stride, length=nsample)
 
 
 class RestorationEngine:

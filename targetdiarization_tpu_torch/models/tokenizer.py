@@ -52,3 +52,8 @@ class CharTokenizer:
                 continue
             out.append("" if (strip_special and tok == UNK) else tok)
         return "".join(out)
+
+    def save(self, path: str):
+        """The vocabulary, one token a line (what `vocab_file` reads)."""
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(self.vocab))

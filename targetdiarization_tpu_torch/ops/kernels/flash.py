@@ -61,6 +61,12 @@ _group_fn = declare("td_flash_group",
                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
+def in_range(g: int, d: int, e: int) -> bool:
+    """Whether the kernels take group size g, q/k depth d and v/u width e."""
+    return (g % 64 == 0 and 64 <= g <= 256 and d % 16 == 0 and 16 <= d <= min(g, 128)
+            and e % 128 == 0 and e > 0)
+
+
 def _check(q, k, v, u, mask, lq=None, lin_kv=None, lin_ku=None):
     """Validates a CUDA call; the gated form passes lq, lin_kv and lin_ku."""
     if q.dim() != 4 or v.dim() != 4:
@@ -81,9 +87,10 @@ def _check(q, k, v, u, mask, lq=None, lin_kv=None, lin_ku=None):
                 or t.device != q.device:
             raise ValueError(f"{name} must be a contiguous {shape} {q.dtype} tensor on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if g % 64 or g < d or g > 256 or d != 128 or e % 128:
-        raise ValueError(f"flash kernels take g a multiple of 64 in [128, 256], d 128 and e "
-                         f"a multiple of 128 (csrc/flash_gated.cu), got g {g}, d {d}, e {e}")
+    if not in_range(g, d, e):
+        raise ValueError(f"flash kernels take g a multiple of 64 in [64, 256], d a multiple of "
+                         f"16 in [16, min(g, 128)] and e a multiple of 128 "
+                         f"(csrc/flash_gated.cu), got g {g}, d {d}, e {e}")
 
 
 def _gated_forward(q, k, v, u, mask, lq, lin_kv, lin_ku):

@@ -341,6 +341,59 @@ def emotion_net_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _to_tensors(sd)
 
 
+# ---------------- inverses of the dense rules ----------------
+
+
+def _dense_flat_params(state_dict: dict, renames, keep_weight=(), scale: bool = True,
+                       convs=()) -> dict[str, np.ndarray]:
+    """The inverse of `_dense_rules` (and of `_to_tensors`): "." -> "/", the
+    renames applied in order, a 2-D `weight` (a Linear's) back to a
+    transposed `kernel` unless its module is in `keep_weight`, a 1-D
+    `weight` to a flax norm's `scale` where `scale`; keys in `convs` are 1-D
+    Conv weights (out, in, k) back to kernels (k, in, out)."""
+    flat = {}
+    for key, t in state_dict.items():
+        v = t.detach().float().cpu().numpy()
+        name = key.replace(".", "/")
+        if key in convs:
+            name, v = name[: -len("weight")] + "kernel", v.transpose(2, 1, 0)
+        for pat, rep in renames:
+            name = pat.sub(rep, name)
+        path = name.split("/")
+        if path[-1] == "weight" and v.ndim == 2 and path[-2] not in keep_weight:
+            path[-1], v = "kernel", v.T
+        elif path[-1] == "weight" and v.ndim == 1 and scale:
+            path[-1] = "scale"
+        flat["params/" + "/".join(path)] = np.ascontiguousarray(v, np.float32)
+    return flat
+
+
+_PARAFORMER_INVERSE = (
+    (re.compile(r"^encoder/blocks/(\d+)/"), r"encoder/block_\1/"),
+    (re.compile(r"^decoder_blocks/(\d+)/"), r"dec_\1/"),
+    (re.compile(r"/fsmn$"), r"/fsmn/kernel"),
+)
+
+
+def paraformer_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `paraformer_state_dict` (and of `sensevoice_state_dict`),
+    in the shipped checkpoints' per-layer layout (`encoder/block_{i}`,
+    `dec_{i}`)."""
+    return _dense_flat_params(state_dict, _PARAFORMER_INVERSE, convs=("predictor.conv.weight",))
+
+
+def fsmn_vad_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `fsmn_vad_state_dict`."""
+    return _dense_flat_params(state_dict, ((re.compile(r"^blocks/(\d+)/"), r"fsmn_\1/"),
+                                           (re.compile(r"/memory$"), r"/memory/kernel")))
+
+
+def apollo_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `apollo_state_dict`: Apollo's norms are its own
+    `weight`s (the banked `out_norm` 2-D), so only Linear weights change."""
+    return _dense_flat_params(state_dict, (), keep_weight=("out_norm",), scale=False)
+
+
 # ---------------- the separator zoo ----------------
 #
 # The zoo's modules keep the JAX names, so one set of layout rules serves
@@ -441,5 +494,7 @@ CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_st
               **{name: partial(zoo_state_dict, name=name) for name in ZOO_NAMES}}
 
 # port state dict -> the JAX flat parameter names
-INVERSE_CONVERTERS = {"MossFormer2": mossformer2_flat_params,
+INVERSE_CONVERTERS = {"MossFormer2": mossformer2_flat_params, "FsmnVADNet": fsmn_vad_flat_params,
+                      "Apollo": apollo_flat_params, "Paraformer": paraformer_flat_params,
+                      "SenseVoice": paraformer_flat_params,
                       **{name: partial(zoo_flat_params, name=name) for name in ZOO_NAMES}}

@@ -5,8 +5,8 @@ the checkpoint's own `model_name` picks the class. The ported models are
 MossFormer2, Paraformer, CTTransformerPunc, FsmnVADNet, TDFUNet,
 SegmentationNet, ERes2NetV2, CAMPlusPlus, Apollo, FlowEnhancer, EmotionNet,
 SenseVoice, WhisperStyleASR and the ten separators of `models/zoo.py`;
-any other name raises. `save_checkpoint` writes MossFormer2 or a zoo model
-the way the JAX package does.
+any other name raises. `save_checkpoint` writes MossFormer2, FsmnVADNet,
+Apollo, Paraformer, SenseVoice or a zoo model the way the JAX package does.
 """
 
 from __future__ import annotations
@@ -60,7 +60,8 @@ def save_checkpoint(path: str, model: torch.nn.Module, model_name: str,
                     model_args: dict | None = None) -> None:
     """`model`'s weights under `path` as the JAX package stores them: the
     flat `params.npz` in the JAX names and layouts (`INVERSE_CONVERTERS`)
-    and `model.json`. MossFormer2 and the zoo's classes have an inverse."""
+    and `model.json`. MossFormer2, FsmnVADNet, Apollo, Paraformer, SenseVoice
+    and the zoo's classes have an inverse."""
     flat = INVERSE_CONVERTERS[model_name](model.state_dict())
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"), **flat)

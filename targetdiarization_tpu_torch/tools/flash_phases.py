@@ -54,20 +54,20 @@ _EDITS = (
      "        TICK(2)\n        wgmma_fence();\n        const uint32_t a = at_s + ch * kTile;"),
     ("        wgmma_commit();\n"
      "        if (step + 1 < n_steps) {  // while the tensor cores work\n"
-     "            put(st ^ 1);\n"
+     "            put(st ^ 1, step + 1);\n"
      "            if (step + 2 < n_steps) fetch(step + 2);\n"
      "        }\n"
      "        wgmma_wait_all();\n"
      "        fence_acc(acc);\n",
      "        wgmma_commit();\n        TICK(3)\n"
      "        if (step + 1 < n_steps) {\n"
-     "            put(st ^ 1);\n            TICK(4)\n"
+     "            put(st ^ 1, step + 1);\n            TICK(4)\n"
      "            if (step + 2 < n_steps) fetch(step + 2);\n            TICK(5)\n"
      "        }\n"
      "        wgmma_wait_all();\n"
      "        fence_acc(acc);\n        TICK(6)\n"),
 )
-_END = "template <typename T, bool kGated>\nint launch("
+_END = "template <typename T, bool kGated, bool kFullD>\nint launch_d("
 
 
 def instrument(source: str) -> str:

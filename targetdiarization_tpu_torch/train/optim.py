@@ -330,6 +330,30 @@ _OPTIMIZERS = {"adam": adam, "adamw": adamw, "sgd": sgd, "rmsprop": rmsprop,
                "radam": radam, "yogi": yogi, "novograd": novograd, "lion": lion}
 
 
+def apply_if_finite(inner: Transform, max_consecutive_errors: int) -> Transform:
+    """optax.apply_if_finite: an update holding a NaN or an infinity is
+    skipped (zeros, `inner`'s state kept) until more than
+    `max_consecutive_errors` come in a row, and then applied. The state is
+    optax's: `notfinite_count`, `last_finite`, `total_notfinite` and
+    `inner_state` (the check reads one flag back to the host a step)."""
+    def init(params):
+        return {"notfinite_count": 0, "last_finite": True, "total_notfinite": 0,
+                "inner_state": inner.init(params)}
+
+    def update(updates, state, params):
+        finite = bool(torch.stack([torch.isfinite(u).all() for u in updates]).all())
+        count = 0 if finite else state["notfinite_count"] + 1
+        if finite or count > max_consecutive_errors:
+            updates, inner_state = inner.update(updates, state["inner_state"], params)
+        else:
+            updates, inner_state = [torch.zeros_like(u) for u in updates], state["inner_state"]
+        return updates, {"notfinite_count": count, "last_finite": finite,
+                         "total_notfinite": state["total_notfinite"] + (not finite),
+                         "inner_state": inner_state}
+
+    return Transform(init, update)
+
+
 def make_optimizer(name: str = "adam", learning_rate=1e-3, weight_decay: float = 0.0,
                    grad_clip: float = 5.0, **kwargs) -> Transform:
     """Factory by name with optional global-norm clipping (the reference
@@ -365,5 +389,34 @@ def halving_exponential(base_lr: float, decay_every: int,
         if step <= 0:
             return _f32(base_lr)
         return _f32(base_lr * np.float32(factor) ** np.floor(np.float32(step) / decay_every))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule in float32: linear from init_value to
+    peak_value over warmup_steps, then cosine decay to end_value at
+    decay_steps (which counts the warmup)."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("the cosine decay needs decay_steps above warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    f32 = np.float32
+
+    def linear(count):
+        if warmup_steps <= 0:
+            return f32(init_value)
+        frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(warmup_steps)
+        return f32(init_value - peak_value) * frac + f32(peak_value)
+
+    def cosine(count):
+        t = f32(min(count, decay_steps - warmup_steps))
+        decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps - warmup_steps)))
+        return f32(peak_value) * (f32(1 - alpha) * decay ** f32(exponent) + f32(alpha))
+
+    def schedule(step):
+        return _f32(linear(step) if step < warmup_steps else cosine(step - warmup_steps))
 
     return schedule

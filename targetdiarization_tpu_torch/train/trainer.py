@@ -50,10 +50,12 @@ class TrainConfig:
 
 # flax's initializers by the JAX leaf name (the JAX models' `self.param`
 # calls and flax's Dense, Conv, LayerNorm); every other leaf is a weight
-# drawn by lecun_normal
-_ZEROS = re.compile(r"^(bias|b|beta|os_beta|in_b\d*|out_b|\w+_b[ih])$")
-_ONES = re.compile(r"^(scale|g|gamma|pos_scale|in_w\d+)$")
+# drawn by lecun_normal. A JAX leaf named `weight` is always a norm's
+# (Dense and Conv name theirs `kernel`)
+_ZEROS = re.compile(r"^(bias|b|beta|os_beta|in_b\d*|out_b|\w+_b[ih]|(uni|tail)_(bn|out)_b)$")
+_ONES = re.compile(r"^(scale|g|weight|gamma|pos_scale|in_w\d+|(uni|tail)_norm_w)$")
 _QUARTER = re.compile(r"^(alpha|prelu\d*)$")
+_NORMAL_002 = ("os_gamma", "tag_queries")
 # flax's truncated normal keeps the draws within two standard deviations,
 # and scales by this to keep the variance asked for
 _TRUNCATED_STD = 0.87962566103423978
@@ -72,11 +74,11 @@ def _flax_leaf(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
     leaf = name.rsplit("/", 1)[-1]
     if _ZEROS.match(leaf):
         return torch.zeros(shape)
-    if _ONES.match(leaf) or leaf in ("w", "weight") and len(shape) == 1:
+    if _ONES.match(leaf) or leaf == "w" and len(shape) == 1:
         return torch.ones(shape)
     if _QUARTER.match(leaf):
         return torch.full(shape, 0.25)
-    if leaf == "os_gamma":
+    if leaf in _NORMAL_002:
         return torch.randn(shape, generator=gen, dtype=torch.float64).float() * 0.02
     return _lecun_normal(shape, gen)
 
@@ -84,9 +86,11 @@ def _flax_leaf(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
 def init_params(model: torch.nn.Module, seed: int = 0) -> dict:
     """A state dict for `model` drawn at flax's initializer scales from a
     torch.Generator seeded by `seed`: each leaf in the JAX package's name
-    and layout (`INVERSE_CONVERTERS`), in sorted name order, then converted
+    and layout (`INVERSE_CONVERTERS`: MossFormer2, the zoo, FsmnVADNet,
+    Apollo, Paraformer, SenseVoice), in sorted name order, then converted
     back. The draws are not jax.random's (another generator), their
-    distributions are."""
+    distributions are. The trainer and the recipes (`train/recipes.py`)
+    both draw here."""
     name = type(model).__name__
     flat = INVERSE_CONVERTERS[name](model.state_dict())
     gen = torch.Generator().manual_seed(seed)

@@ -86,7 +86,8 @@ def bf16():
 
 def test_cif_predictor_with_target_len_matches_jax():
     """The predictor alone on a random encoder output: alphas scaled to
-    each row's target, the same fire frames, no tail frame."""
+    each row's target, the alphas before the scaling, the same fire
+    frames, no tail frame."""
     jp = jasr.CIFPredictor(dim=32)
     rng = np.random.default_rng(0)
     enc = rng.standard_normal((3, 40, 32)).astype(np.float32)
@@ -94,15 +95,17 @@ def test_cif_predictor_with_target_len_matches_jax():
     target = np.array([7.0, 9.0, 3.0], np.float32)
     params = jp.init(jax.random.PRNGKey(0), enc, mask)
     with jax.default_matmul_precision("highest"):
-        _, _, w_alphas, w_fire, w_n, _ = jp.apply(params, enc, mask, jnp.asarray(target))
+        _, _, w_alphas, w_fire, w_n, w_raw = jp.apply(params, enc, mask, jnp.asarray(target))
     tp = tasr.CIFPredictor(dim=32)
     sd = {k[len("predictor."):]: v for k, v in
           paraformer_state_dict({"predictor": params["params"]}).items()}
     tp.load_state_dict(sd, strict=True)
     with torch.inference_mode():
-        _, g_fire, g_n, g_alphas = tp.eval()(torch.from_numpy(enc), torch.from_numpy(mask),
-                                             torch.from_numpy(target))
+        _, g_fire, g_n, g_alphas, g_raw = tp.eval()(torch.from_numpy(enc),
+                                                    torch.from_numpy(mask),
+                                                    torch.from_numpy(target))
     np.testing.assert_allclose(g_alphas.numpy(), np.asarray(w_alphas), atol=1e-6)
+    np.testing.assert_allclose(g_raw.numpy(), np.asarray(w_raw), atol=1e-6)
     np.testing.assert_allclose(g_alphas.sum(dim=1).numpy(), target, rtol=1e-5)
     np.testing.assert_array_equal(g_fire.numpy(), np.asarray(w_fire))
     np.testing.assert_array_equal(g_n.numpy(), np.asarray(w_n))

@@ -37,6 +37,8 @@ from targetdiarization_tpu_torch.runtime.convert import paraformer_state_dict
 from targetdiarization_tpu_torch.runtime.precision import quantize_i16
 from targetdiarization_tpu_torch.runtime.registry import from_pretrained
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = {name: os.path.join(REPO, "checkpoints", f"{name}-bootstrap")
         for name in ("vad", "asr", "punc")}

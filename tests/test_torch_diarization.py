@@ -31,6 +31,8 @@ from targetdiarization_tpu_torch.runtime.convert import segmentation_state_dict
 from targetdiarization_tpu_torch.runtime.params import load_checkpoint
 from targetdiarization_tpu_torch.runtime.registry import from_pretrained
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "checkpoints", "seg-bootstrap")
 SMALL = dict(dim=32, n_layers=1, heads=2, max_speakers=2)

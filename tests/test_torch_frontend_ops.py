@@ -23,6 +23,8 @@ from targetdiarization_tpu_torch.ops import resample as tres
 from targetdiarization_tpu_torch.ops import stft as tstft
 from targetdiarization_tpu_torch.pipeline import fused as tfused
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 # the JAX package's `ops/__init__.py` exports functions named like their modules
 jaudio, jloud, jres, jstft = (importlib.import_module(f"targetdiarization_tpu.ops.{m}")
                               for m in ("audio", "loudness", "resample", "stft"))

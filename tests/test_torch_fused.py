@@ -41,6 +41,8 @@ from targetdiarization_tpu_torch.models.vad import VADEngine
 from targetdiarization_tpu_torch.pipeline import fused as tfused
 from targetdiarization_tpu_torch.runtime.buckets import BucketLadder
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = {k: os.path.join(REPO, "checkpoints", f"{k}-bootstrap")
         for k in ("den", "vad", "seg", "spk")}

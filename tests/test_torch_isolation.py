@@ -11,7 +11,7 @@ the whisper engines, CAM++ and the cloud clients) on the shipped
 checkpoints, and the separator zoo (chip_smoke.py's zoo phase at small
 sizes, `build_model` with a zoo checkpoint); without aiohttp too, all but
 the server app; and training (chip_smoke.py's train phase at a small
-size), with optax blocked too.
+size, and the bootstrap recipes), with optax blocked too.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -36,7 +36,10 @@ _BLOCKED_RUN = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+    import tempfile
     import numpy as np
+    import torch
+    torch.set_num_threads(2)  # beside the other test workers' threads
     import targetdiarization_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(targetdiarization_tpu_torch.__path__,
                                                  "targetdiarization_tpu_torch.")]
@@ -44,7 +47,9 @@ _BLOCKED_RUN = textwrap.dedent("""
         importlib.import_module(name)
     import chip_smoke
     from targetdiarization_tpu_torch.processors.audio import AudioProcessor
-    ap = AudioProcessor("checkpoints/sep-bootstrap", device="cpu")
+    # what is imported, not what is computed: a small seeded separator
+    # checkpoint, written and loaded as the shipped ones are
+    ap = AudioProcessor(SMALL_SEPARATOR(tempfile.mkdtemp()), device="cpu")
     assert ap.is_separate_speaker
     t = np.arange(16000) / 16000.0
     mix = (0.3 * np.sin(2 * np.pi * 150 * t) + 0.1 * np.sin(2 * np.pi * 410 * t)).astype(np.float32)
@@ -71,6 +76,25 @@ _BLOCKED_RUN = textwrap.dedent("""
 """)
 
 
+# a small seeded MossFormer2 checkpoint written under a directory (the
+# subprocess's separator where the test shows what is imported: the CPU
+# runs the shipped 256/12 one slowly)
+_SMALL_SEPARATOR = textwrap.dedent("""
+    def SMALL_SEPARATOR(root):
+        from targetdiarization_tpu_torch.models.separation import MossFormer2
+        from targetdiarization_tpu_torch.runtime.registry import save_checkpoint
+        from targetdiarization_tpu_torch.train.trainer import init_params
+        args = dict(dim=64, enc_channels=64, num_blocks=2, group_size=32, qk_dim=32,
+                    fsmn_inner=64)
+        model = MossFormer2(**args)
+        model.load_state_dict(init_params(model, seed=2))
+        save_checkpoint(root, model, "MossFormer2", args)
+        return root
+""")
+_BLOCKED_RUN = _BLOCKED_RUN.replace("sys.meta_path.insert(0, Block())",
+                                    "sys.meta_path.insert(0, Block())" + _SMALL_SEPARATOR, 1)
+
+
 def test_port_and_chip_smoke_run_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, capture_output=True,
                           text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
@@ -89,6 +113,8 @@ _BLOCKED_ASR = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import numpy as np
+    import torch
+    torch.set_num_threads(2)  # beside the other test workers' threads
     from chip_smoke import synth_utterance
     from targetdiarization_tpu_torch.processors.asr import ASRProcessor
     ap = ASRProcessor(vad_model="checkpoints/vad-bootstrap", asr_model="checkpoints/asr-bootstrap",
@@ -419,6 +445,20 @@ _BLOCKED_TRAIN = textwrap.dedent("""
         convtasnet_args=dict(enc_channels=32, bottleneck=16, hidden=32, n_blocks=3, n_repeats=1))
     assert launches == {"ffconvm": 20, "flash_gated": 4, "flash_group": 0, "dwconv": 8,
                         "dwconv_dx": 4}, launches
+    # the recipes phase at small sizes: each recipe with the kernels' wrappers
+    # and under plain_kernels(), launches a step as predicted, served back
+    sep = dict(dim=32, enc_channels=32, num_blocks=2, group_size=64, qk_dim=32, fsmn_inner=32)
+    runs = (("vad", "bootstrap_vad", dict(steps=2, batch=2, seconds=1.0), "vad"),
+            ("sep", "bootstrap_separator", dict(steps=2, batch=2, seconds=0.25, model=sep), None),
+            ("rest", "bootstrap_restorer", dict(steps=2, batch=2, seconds=0.5, feature_dim=16,
+                                                layer=1), None),
+            ("asr", "bootstrap_asr", dict(steps=2, batch=2, seconds=1.0, eval_utts=1, dim=32,
+                                          enc_layers=1, dec_layers=1, ffn=64, device_synth=True,
+                                          aug_frac=0.5), None),
+            ("sv", "bootstrap_sensevoice", dict(steps=2, batch=2, seconds=1.0, eval_utts=1,
+                                                dim=32, enc_layers=1, ffn=64), None))
+    totals = chip_smoke.check_recipes(device="cpu", runs=runs)
+    assert totals["ffconvm"] and totals["flash_gated"] and totals["dwconv_dx"], totals
 """)
 
 
@@ -426,7 +466,9 @@ def test_training_runs_without_jax_or_optax():
     """chip_smoke.py's train phase at a small size on the CPU: gradients
     against plain, 2 fit steps with their launches counted, save and
     restore, the inference export through the engine, and ConvTasNet's
-    steps, with optax blocked too."""
+    steps; then its recipes phase at small sizes (the five recipes of
+    `train/recipes.py`, the ASR one on its device data path through the
+    preprocess chain), with optax blocked too."""
     proc = _run_blocked(_BLOCKED_TRAIN, extra=("aiohttp", "optax"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout

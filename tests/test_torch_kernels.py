@@ -32,6 +32,8 @@ from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
 from targetdiarization_tpu_torch.ops.kernels.ffconvm import ffconvm
 from targetdiarization_tpu_torch.ops.kernels.flash import flash_gated, flash_group_attention
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -484,69 +486,104 @@ def test_chip_smoke_plain_patch_takes_the_models_calls(rng):
 # ---------------- gated FLASH's float32 split on the tensor cores ----------------
 
 
-def _split_product(a, b, passes):
+def _split_product(a, b, passes, half=False):
     """a @ b as the kernel's tensor cores run it: both operands split into
-    bf16 halves, each bf16 x bf16 product exact, summed in float64 here
-    (the card sums in float32); passes 1 is hi.hi, 3 adds hi.lo and lo.hi."""
-    a_hi, a_lo = (t.double() for t in ffmod.split_bf16(a))
-    b_hi, b_lo = (t.double() for t in ffmod.split_bf16(b))
+    bf16 halves (or, with `half`, each scaled by a power of two that puts
+    its largest |x| in [2^14, 2^15) and split into fp16 halves: the FLASH
+    kernel's float32 path), each 16-bit product exact, summed in float64
+    here (the card sums in float32); passes 1 is hi.hi, 3 adds hi.lo and
+    lo.hi."""
+    def halves(x):
+        if not half:
+            return (t.double() for t in ffmod.split_bf16(x))
+        scale = 2.0 ** (14 - int(np.floor(np.log2(float(x.abs().max())))))
+        hi = (x * scale).half().float()
+        return hi.double() / scale, ((x * scale) - hi).half().double() / scale
+
+    a_hi, a_lo = halves(a)
+    b_hi, b_lo = halves(b)
     acc = a_hi @ b_hi
     if passes == 3:
         acc = acc + a_hi @ b_lo + a_lo @ b_hi
     return acc.float()
 
 
-def _emulate_flash_gated(q, k, v, u, mask, lq, kv, ku, passes):
+def _emulate_flash_gated(q, k, v, u, mask, lq, kv, ku, passes, half=False):
     """csrc/flash_gated.cu's float32 arithmetic: S = q k^T in `passes` split
     passes, A = relu(S / g)^2 * mask in float32, then A, lq, v, u, lin_kv
     and lin_ku split for [A | lq] . [v ; lin_kv] and . [u ; lin_ku], the
-    gate in float32."""
+    gate in float32; `half` for fp16 halves of scaled operands."""
     g = q.shape[-2]
-    s = _split_product(q, k.transpose(-1, -2), passes)
+    s = _split_product(q, k.transpose(-1, -2), passes, half)
     attn = torch.relu(s * (1.0 / g)).square() * mask
     a_lq = torch.cat([attn, lq], dim=-1)
-    att_v = _split_product(a_lq, torch.cat([v, kv[:, None]], dim=-2), passes)
-    att_u = _split_product(a_lq, torch.cat([u, ku[:, None]], dim=-2), passes)
+    att_v = _split_product(a_lq, torch.cat([v, kv[:, None]], dim=-2), passes, half)
+    att_u = _split_product(a_lq, torch.cat([u, ku[:, None]], dim=-2), passes, half)
     return (att_u * v) * torch.sigmoid(att_v * u)
+
+
+def _gated_exact(args):
+    qd, kd, vd, ud, md, lqd, kvd, kud = (a.double() for a in args)
+    attn = torch.relu(qd @ kd.transpose(-1, -2) / qd.shape[-2]).square() * md
+    att_v = attn @ vd + lqd @ kvd[:, None]
+    att_u = attn @ ud + lqd @ kud[:, None]
+    return (att_u * vd) * torch.sigmoid(att_v * ud)
 
 
 @pytest.mark.parametrize("qk_scale", [4.0, 1.0])
 def test_flash_split_passes_meet_float32_limit(qk_scale, rng):
-    """Three bf16 passes (hi.hi + hi.lo + lo.hi) of both products stay within
+    """Three passes (hi.hi + hi.lo + lo.hi) of both products stay within
     the card check's 1e-4 limit of a float64 `flash_gated_plain` at the main
     path's group shape (g 256, d 128, e 1024) with a masked tail of 225
-    keys, at chip_smoke.py's input scale (q, k x 4) and at unit scale; one
-    bf16 pass alone misses it. So the kernel runs three passes, no lo.lo."""
+    keys, at chip_smoke.py's input scale (q, k x 4) and at unit scale, with
+    fp16 halves of scaled operands (the kernel's float32 path) and with bf16
+    halves; one bf16 pass alone misses it. So the kernel runs three passes,
+    no lo.lo."""
     q, k, v, u, mask, lq, kv, ku = _gated_inputs(rng, 1, 1, 256, 128, 1024, masked_cols=225)
     q, k = q * qk_scale, k * qk_scale
     args = [torch.from_numpy(a) for a in (q, k, v, u, mask, lq, kv, ku)]
-    qd, kd, vd, ud, md, lqd, kvd, kud = (a.double() for a in args)
-    attn = torch.relu(qd @ kd.transpose(-1, -2) / 256).square() * md
-    att_v = attn @ vd + lqd @ kvd[:, None]
-    att_u = attn @ ud + lqd @ kud[:, None]
-    exact = (att_u * vd) * torch.sigmoid(att_v * ud)
+    exact = _gated_exact(args)
     limit = 1e-4 * exact.abs().max()
-    three = _emulate_flash_gated(*args, passes=3).double()
-    assert (three - exact).abs().max() <= limit
+    for half in (True, False):
+        three = _emulate_flash_gated(*args, passes=3, half=half).double()
+        assert (three - exact).abs().max() <= limit
     one = _emulate_flash_gated(*args, passes=1).double()
     assert (one - exact).abs().max() > limit
     torch.testing.assert_close(flash_gated(*args).double(), exact, rtol=0,
                                atol=float(limit))
 
 
+@pytest.mark.parametrize("g, d, e", [(256, 128, 1024), (128, 128, 512), (64, 32, 128)])
+def test_flash_fp16_split_keeps_margin_where_bf16_split_does_not(g, d, e, rng):
+    """At every FLASH_SHAPES group shape and chip_smoke.py's input scale,
+    three passes over fp16 halves of power-of-two scaled operands (the
+    kernel's float32 path) err by under a tenth of the 1e-4 limit, and by
+    under a tenth of what three passes over bf16 halves err by (those reach
+    2.2e-4 at g 128 on the card's inputs, tools/flash_precision.py)."""
+    q, k, v, u, mask, lq, kv, ku = _gated_inputs(rng, 6, 1, g, d, e, masked_cols=g // 5)
+    args = [torch.from_numpy(a) for a in (q * 4.0, k * 4.0, v, u, mask, lq, kv, ku)]
+    exact = _gated_exact(args)
+    top = float(exact.abs().max())
+    fp16 = float((_emulate_flash_gated(*args, passes=3, half=True).double() - exact).abs().max())
+    bf16 = float((_emulate_flash_gated(*args, passes=3).double() - exact).abs().max())
+    assert fp16 <= 1e-5 * top and fp16 <= 0.1 * bf16
+
+
 def test_flash_wrapper_refuses_shapes_the_kernel_does_not_take():
-    """The CUDA branch takes g a multiple of 64 in [d, 256], d 128 and e a
-    multiple of 128 (csrc/flash_gated.cu); both shipped separators fit."""
+    """The CUDA branch takes g a multiple of 64 in [64, 256], d a multiple of
+    16 in [16, min(g, 128)] and e a multiple of 128 (csrc/flash_gated.cu):
+    both shipped separators and the training recipe's default fit."""
     def args(g, d, e, gated=True):
         q, v = torch.zeros(1, 2, g, d), torch.zeros(1, 2, g, e)
         extra = (q, torch.zeros(1, d, e), torch.zeros(1, d, e)) if gated else ()
         return (q, q, v, v, torch.zeros(1, 2, 1, g), *extra)
 
-    for g, e in ((256, 1024), (128, 512)):
-        flmod._check(*args(g, 128, e))
-        flmod._check(*args(g, 128, e, gated=False))
-    for g, d, e in ((256, 64, 1024), (96, 128, 1024), (512, 128, 1024), (256, 128, 1000),
-                    (64, 128, 1024)):
+    for g, d, e in ((256, 128, 1024), (128, 128, 512), (64, 32, 128), (256, 64, 1024),
+                    (128, 16, 128), (64, 64, 256)):
+        flmod._check(*args(g, d, e))
+        flmod._check(*args(g, d, e, gated=False))
+    for g, d, e in ((96, 128, 1024), (512, 128, 1024), (256, 128, 1000), (64, 128, 1024),
+                    (256, 24, 1024), (256, 144, 1024), (32, 16, 128), (64, 0, 128)):
         with pytest.raises(ValueError, match="flash kernels take"):
             flmod._check(*args(g, d, e))
 
@@ -579,6 +616,7 @@ def test_flash_phase_probe_finds_its_anchors():
     with open(os.path.join(_build.CSRC, "flash_gated.cu")) as f:
         text = instrument(f.read())
     assert text.count("TICK(") == 10 and 'extern "C" int td_flash_phases' in text
+    assert text.index("TICK(8)") < text.index("int launch_d(")  # the kernel's own end
     with pytest.raises(ValueError, match="anchor"):
         instrument(text.replace("    fetch(0);", "    fetch(0) ;"))
 

@@ -27,6 +27,8 @@ from targetdiarization_tpu_torch.runtime.convert import eres2netv2_state_dict
 from targetdiarization_tpu_torch.runtime.params import load_checkpoint
 from targetdiarization_tpu_torch.runtime.registry import from_pretrained
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "checkpoints", "spk-bootstrap")
 SMALL = dict(channels=8, blocks=(1, 1, 1, 1))

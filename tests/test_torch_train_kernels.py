@@ -28,6 +28,8 @@ from targetdiarization_tpu_torch.ops.kernels import dwconv as dwmod
 from targetdiarization_tpu_torch.ops.kernels import ffconvm as ffmod
 from targetdiarization_tpu_torch.ops.kernels import flash as flmod
 
+torch.set_num_threads(2)  # beside the other test workers' threads
+
 TOL = 1e-4
 
 
