@@ -37,7 +37,11 @@ recipes (`recipes`): `train/recipes.py`'s five recipes that train through
 a kernel, each at its shipped checkpoint's width (the separator also at
 its own 64/4 default) for 5 steps from synthesized fixtures, with the
 kernels and under the plain versions, their checkpoints served back by
-their engines.
+their engines, and drive the recipes whose models run no kernel
+(`recipes_plain`): `train/recipes_plain.py`'s nine (the speaker one with
+ERes2NetV2 and CAM++, the whisper one on its corpus and on device batches)
+at the shipped checkpoints' widths for 3 steps, no kernel launched, their
+checkpoints reloaded against the models as saved.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -75,7 +79,9 @@ forward, backward and optimizer ms of a step, the peak memory, the
 export's SI-SDR against the trained model; ConvTasNet's gradients and
 launches), and the recipes (each recipe's ms a step, peak memory,
 launches a step against the prediction from the model, step losses with
-the kernels and plain, metrics, the served checkpoint's agreement).
+the kernels and plain, metrics, the served checkpoint's agreement), and
+the plain recipes (each run's ms a step, peak GB, losses, launches, the
+reloaded checkpoints' agreement, `phase_s`).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -3338,11 +3344,12 @@ def recipe_launches(recipe: str, args: dict) -> dict:
 class RecipeProbe:
     """Reads a recipe's training steps as it runs: each step's loss
     unrounded (the log prints 3-4 decimals), the time between step ends and
-    the kernel launches between them; and the initial parameters."""
+    the kernel launches between them; every initial draw, and every model
+    the recipe saves (its state as saved, where its tensors lay)."""
 
     def __init__(self, device: str):
         self.device = device
-        self.losses, self.ends, self.launches, self.init = [], [], [], None
+        self.losses, self.ends, self.launches, self.inits, self.saves = [], [], [], [], []
 
     def _end(self, loss) -> None:
         from targetdiarization_tpu_torch.ops.kernels.dwconv import dwconv
@@ -3356,12 +3363,13 @@ class RecipeProbe:
         from contextlib import ExitStack
         from unittest import mock
 
+        from targetdiarization_tpu_torch.runtime import registry
         from targetdiarization_tpu_torch.train import recipes, trainer
 
         stack = ExitStack()
         probe = self
         vag, apply, step = recipes._value_and_grad, recipes._apply, trainer.SeparationTrainer.train_step
-        init = trainer.init_params
+        init, save = trainer.init_params, registry.save_checkpoint
         pending = {}
 
         def value_and_grad(loss_fn, params):
@@ -3381,13 +3389,20 @@ class RecipeProbe:
 
         def init_params(model, seed=0):
             sd = init(model, seed)
-            probe.init = {k: v.clone() for k, v in sd.items()}
+            probe.inits.append({k: v.clone() for k, v in sd.items()})
             return sd
+
+        def save_checkpoint(path, model, model_name, model_args=None):
+            state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            probe.saves.append({"path": path, "name": model_name, "state": state,
+                                "devices": sorted({v.device.type for v in state.values()})})
+            return save(path, model, model_name, model_args)
 
         for obj, name, value in ((recipes, "_value_and_grad", value_and_grad),
                                  (recipes, "_apply", apply_),
                                  (trainer.SeparationTrainer, "train_step", train_step),
-                                 (trainer, "init_params", init_params)):
+                                 (trainer, "init_params", init_params),
+                                 (registry, "save_checkpoint", save_checkpoint)):
             stack.enter_context(mock.patch.object(obj, name, value))
         return stack
 
@@ -3423,7 +3438,8 @@ def run_recipe(label: str, recipe: str, args: dict, root: str, device: str,
         metrics = getattr(recipes, recipe)(checkpoint_dir=ckpt, log_fn=logs.append,
                                            device=device, **kwargs)
     sync(device)
-    return {"metrics": metrics, "logs": logs, "losses": probe.losses, "init": probe.init,
+    return {"metrics": metrics, "logs": logs, "losses": probe.losses, "inits": probe.inits,
+            "saves": probe.saves,
             "step_ms": [(b - a) * 1e3 for a, b in zip(probe.ends, probe.ends[1:])],
             "per_step": probe.per_step(start), "total_s": time.perf_counter() - t0,
             "peak_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
@@ -3487,7 +3503,7 @@ def params_moved(run: dict) -> bool:
     saved = from_pretrained(run["checkpoint"]).state_dict()
     finite = all(bool(v.isfinite().all()) for v in saved.values())
     return finite and any(not np.array_equal(saved[k].numpy(), v.cpu().numpy())
-                          for k, v in run["init"].items())
+                          for k, v in run["inits"][0].items())
 
 
 def check_recipes(device: str = "cuda", runs: tuple = RECIPE_RUNS) -> dict:
@@ -3496,8 +3512,9 @@ def check_recipes(device: str = "cuda", runs: tuple = RECIPE_RUNS) -> dict:
     from the same seed: step 1's loss within 1e-4 (relative), step 5's within
     STEP5_RTOL for the dwconv-only recipes, every logged loss finite, the
     saved parameters moved, the launches a training step as
-    `recipe_launches` predicts, and the checkpoint served by its engine,
-    kernels against plain. Returns the launches of the kernel runs."""
+    `recipe_launches` predicts, a run with `aug_frac` scored through the
+    preprocess chain (`preprocess_ran`), and the checkpoint served by its
+    engine, kernels against plain. Returns the launches of the kernel runs."""
     import shutil
     import tempfile
 
@@ -3548,6 +3565,8 @@ def check_recipes(device: str = "cuda", runs: tuple = RECIPE_RUNS) -> dict:
                 fails.append(f"launches a step {kern['per_step'][:steps]}, want {want}")
             if not params_moved(kern):
                 fails.append("the saved parameters did not move or are not finite")
+            if not preprocess_ran(args, kern["metrics"]):
+                fails.append("no held-out CER through the preprocess chain")
             if not served["ok"]:
                 fails.append(f"served kernels against plain: {served}")
             if fails:
@@ -3557,6 +3576,204 @@ def check_recipes(device: str = "cuda", runs: tuple = RECIPE_RUNS) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("recipes_phase", phase_s=time.time() - t0, launches=total)
+    return total
+
+
+# ---------------- the bootstrap recipes whose models run no kernel ----------------
+
+# the shipped checkpoints' configurations (their model.json), the models the
+# runs below train: ERes2NetV2 is the "eres2netv2_large" preset (24 wide,
+# blocks 2/2/2/2), the MOS nets the class defaults
+RECIPE_PLAIN_MODELS = {
+    "spk": dict(channels=24, blocks=[2, 2, 2, 2]), "campp": {}, "seg": {},
+    "enh": dict(ch=48, sample_rate=16000), "mos": dict(n_out=3), "sigmos": dict(n_out=7),
+    "den": dict(channels=8, depth=3, growth=4),
+    "punc": dict(vocab_size=21001, dim=128, ffn=256, n_layers=2), "emo": {},
+    "whisper": dict(vocab_size=21001, dim=128, heads=4, ffn=512, enc_layers=3, dec_layers=2),
+}
+# (label, recipe, its arguments, the checkpoint whose configuration it
+# trains): full width, the recipes' batches and clip lengths, 3 steps.
+# Cut: the step counts; the evals' `eval_utts` to 4; the MOS recipes' pools
+# to 16 samples (240 and 512 by default); whisper's corpus to 32 and 16
+# utterances (2000), once on the corpus alone and once with no corpus phase
+# on fresh device batches (`phase1_steps=0`; a phase 1 of a step would not
+# reach the fresh batches within 3 steps), a quarter of each through the
+# preprocess chain on `checkpoints/den-bootstrap`
+RECIPE_RUNS_PLAIN = (
+    ("spk eres2netv2", "bootstrap_speaker",
+     dict(steps=3, batch=16, seconds=2.0, model_name="eres2netv2_large"), "spk"),
+    ("spk campp", "bootstrap_speaker", dict(steps=3, batch=16, seconds=2.0, model_name="campp"),
+     "campp"),
+    ("seg", "bootstrap_segmentation", dict(steps=3, batch=8, seconds=4.0), "seg"),
+    ("enh", "bootstrap_enhancer", dict(steps=3, batch=8, seconds=2.0, ch=48), "enh"),
+    ("mos", "bootstrap_mos", dict(steps=3, batch=8, pool=16), "mos"),
+    ("sigmos", "bootstrap_sigmos", dict(steps=3, batch=16, pool=16), "sigmos"),
+    ("den", "bootstrap_denoiser", dict(steps=3, batch=2), "den"),
+    ("punc", "bootstrap_punc", dict(steps=3, batch=32, eval_utts=4), "punc"),
+    ("emo", "bootstrap_emotion", dict(steps=3, batch=32, seconds=2.0, eval_utts=4), "emo"),
+    ("whisper corpus", "bootstrap_whisper",
+     dict(steps=3, batch=16, seconds=4.0, eval_utts=4, n_corpus=32), "whisper"),
+    ("whisper device", "bootstrap_whisper",
+     dict(steps=3, batch=16, seconds=4.0, eval_utts=4, n_corpus=16, device_synth=True,
+          fresh_source="device", phase1_steps=0, aug_frac=0.25,
+          denoiser_dir=os.path.join(ROOT, "checkpoints", "den-bootstrap")), "whisper"),
+)
+RELOAD_RTOL = 1e-6
+
+
+def preprocess_ran(args: dict, metrics: dict) -> bool:
+    """False where a run asked for the preprocess chain (`aug_frac` > 0) and
+    its held-out CER through the chain is missing: `bootstrap_asr` and
+    `bootstrap_whisper` leave the chain out without a word when the
+    denoiser's checkpoint is not there."""
+    return not args.get("aug_frac") or metrics.get("eval_cer_preprocessed") is not None
+
+
+def plain_recipe_input(model, device: str) -> tuple:
+    """One seeded input for a forward of `model` (a class a plain recipe
+    saves), on `device`."""
+    import torch
+
+    from targetdiarization_tpu_torch.models import diarization, emotion, enhancement, speaker
+    from targetdiarization_tpu_torch.models.denoise import DIM_F, DIM_T, TDFUNet
+    from targetdiarization_tpu_torch.models.punctuation import CTTransformerPunc
+    from targetdiarization_tpu_torch.models.whisper_style import WhisperStyleASR
+    from targetdiarization_tpu_torch.train.mos import DNSMOSNet, SigMOSNet
+
+    gen = torch.Generator().manual_seed(45)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    lengths = torch.tensor([200, 131], device=device)
+    frames = (torch.arange(200, device=device)[None, :] < lengths[:, None]).float()
+    if isinstance(model, (speaker.ERes2NetV2, speaker.CAMPlusPlus, diarization.SegmentationNet,
+                          emotion.EmotionNet)):
+        return 3 * randn(2, 200, 80), lengths
+    if isinstance(model, enhancement.FlowEnhancer):
+        return randn(2, 63, 257), torch.tensor([0.25, 0.75], device=device), randn(2, 63, 257).abs()
+    if isinstance(model, DNSMOSNet):
+        return (randn(1, 900, 120),)
+    if isinstance(model, SigMOSNet):
+        return (randn(1, 3, 67, 481),)
+    if isinstance(model, TDFUNet):
+        return (randn(1, 4, DIM_F, DIM_T),)
+    ids = torch.randint(1, 21000, (2, 16), generator=gen).to(device)
+    if isinstance(model, CTTransformerPunc):
+        return ids, (torch.arange(16, device=device)[None, :] < torch.tensor(
+            [[16], [9]], device=device)).float()
+    if isinstance(model, WhisperStyleASR):
+        return 3 * randn(2, 200, 80), frames, ids[:, :8]
+    raise TypeError(f"no input for {type(model).__name__}")
+
+
+def reload_saved(name: str, path: str, device: str):
+    """A saved checkpoint loaded back as the port loads it: the MOS nets
+    through their estimators, every other model through the registry that
+    the engines' `from_pretrained` use."""
+    from targetdiarization_tpu_torch.runtime.registry import from_pretrained
+    from targetdiarization_tpu_torch.train import mos
+
+    if name == "DNSMOSNet":
+        head = os.path.basename(path) == "p808"
+        est = mos.MOSEstimator.from_pretrained(os.path.dirname(path) if head else path,
+                                               device=device)
+        return est.net808 if head else est.net
+    if name == "SigMOSNet":
+        return mos.SigMOSEstimator.from_pretrained(path, device=device).net
+    return from_pretrained(path).to(device).eval()
+
+
+def saved_agreement(run: dict, device: str) -> list[dict]:
+    """Each checkpoint the run saved: where its tensors lay, whether its
+    parameters (all finite) moved from the initial draw made in the same
+    order, and the reloaded model's forward on one input against the same
+    network holding the state as saved (max |difference| over max
+    |output|)."""
+    import copy
+
+    import torch
+
+    out = []
+    for i, saved in enumerate(run["saves"]):
+        model = reload_saved(saved["name"], saved["path"], device)
+        state = model.state_dict()
+        init = run["inits"][i] if i < len(run["inits"]) else {}
+        finite = all(bool(v.float().isfinite().all()) for v in state.values())
+        moved = any(not torch.equal(state[k].cpu(), v.cpu()) for k, v in init.items())
+        as_saved = copy.deepcopy(model)
+        as_saved.load_state_dict(saved["state"], strict=True)
+        x = plain_recipe_input(model, device)
+        with torch.no_grad():
+            got, want = model(*x), as_saved(*x)
+        err = float((got - want).abs().max() / torch.clamp_min(want.abs().max(), 1e-30))
+        out.append({"name": saved["name"], "path": os.path.basename(saved["path"]),
+                    "devices": saved["devices"], "finite": finite, "moved": moved,
+                    "reload_rel_err": err})
+    return out
+
+
+def check_recipes_plain(device: str = "cuda", runs: tuple = RECIPE_RUNS_PLAIN) -> dict:
+    """The plain recipes phase: each recipe of `runs` (the nine recipes of
+    `train/recipes_plain.py`, the speaker one with ERes2NetV2 and CAM++, the
+    whisper one on its corpus and on device batches) on the device from the
+    synthesized fixtures. Holds, each failure loud: every parameter and
+    buffer of each saved model on the device; every step's loss and every
+    logged loss finite; the saved parameters finite and moved from the
+    initial draw; no kernel launched; a run with `aug_frac` scored through
+    the preprocess chain (`preprocess_ran`); each checkpoint reloaded (the
+    registry, or the MOS estimators) giving the saved model's outputs within
+    RELOAD_RTOL on one input. Prints each run's ms a step (median of steps 2
+    to the last), peak memory and phase_s. Returns the launches (all 0)."""
+    import shutil
+    import tempfile
+
+    from targetdiarization_tpu_torch.train import recipes
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="td_recipes_plain_")
+    total: dict = {}
+    try:
+        recipes.ASSETS = recipe_fixtures(os.path.join(root, "assets"))
+        for label, recipe, args, config in runs:
+            run = run_recipe(label, recipe, args, root, device, plain=False)
+            saved = saved_agreement(run, device)
+            steps = args["steps"]
+            logged = [float(x) for line in run["logs"] if "loss=" in line
+                      for x in [line.split("loss=")[1].split()[0]]]
+            row = {"recipe": recipe, "label": label, "model": RECIPE_PLAIN_MODELS.get(config),
+                   "args": {k: v for k, v in args.items() if k != "denoiser_dir"},
+                   "ms_per_step": statistics.median(run["step_ms"]) if run["step_ms"] else None,
+                   "step_ms": run["step_ms"],
+                   "peak_gb": None if run["peak_bytes"] is None else run["peak_bytes"] / 1e9,
+                   "recipe_s": run["total_s"], "losses": run["losses"],
+                   "launches": run["launches"], "saved": saved, "metrics": run["metrics"]}
+            emit("recipe_plain", **row)
+            fails = []
+            if len(run["losses"]) != steps or not logged \
+                    or not np.isfinite(run["losses"] + logged).all():
+                fails.append(f"losses {run['losses']} (logged {logged}) not {steps} finite")
+            if any(run["launches"].values()):
+                fails.append(f"kernel launches {run['launches']}")
+            if not saved:
+                fails.append("no checkpoint saved")
+            if not preprocess_ran(args, run["metrics"]):
+                fails.append("no held-out CER through the preprocess chain")
+            for s in saved:
+                if s["devices"] != [device]:
+                    fails.append(f"{s['path']}: tensors on {s['devices']}")
+                if not (s["finite"] and s["moved"]):
+                    fails.append(f"{s['path']}: parameters finite {s['finite']}, "
+                                 f"moved {s['moved']}")
+                if not s["reload_rel_err"] <= RELOAD_RTOL:
+                    fails.append(f"{s['path']}: reloaded {s['reload_rel_err']:.3g} from saved")
+            if fails:
+                raise AssertionError(f"recipe {label}: " + "; ".join(fails))
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("recipes_plain_phase", phase_s=time.time() - t0, launches=total)
     return total
 
 
@@ -3669,6 +3886,7 @@ def main() -> None:
                      "zoo": check_zoo()}
     path_launches["train"], rows["dwconv_dx"] = check_train()
     path_launches["recipes"] = check_recipes()
+    path_launches["recipes_plain"] = check_recipes_plain()
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

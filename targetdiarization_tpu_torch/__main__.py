@@ -45,9 +45,9 @@ def cmd_infer(args):
     else:
         print(text)
     if args.output_audio and target_audio is not None:
-        from .utils.audio_io import write_wav
+        from .utils.audio_io import write_audio
 
-        write_wav(args.output_audio, np.asarray(target_audio), 16000)
+        write_audio(args.output_audio, np.asarray(target_audio), 16000)
         print(f"target audio -> {args.output_audio}", file=sys.stderr)
 
 

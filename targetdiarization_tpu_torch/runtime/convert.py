@@ -394,6 +394,109 @@ def apollo_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
     return _dense_flat_params(state_dict, (), keep_weight=("out_norm",), scale=False)
 
 
+def dnsmos_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """State dict of `train/mos.py::DNSMOSNet` or `SigMOSNet`: the modules
+    keep the JAX names, Conv kernels take torch's layout."""
+    return _to_tensors(_conv_rules(flatten(tree.get("params", tree)), ()))
+
+
+def _conv_flat_params(state_dict: dict, renames=(), transposed=(), attention=None,
+                      heads: int = 4, embeddings=()) -> dict[str, np.ndarray]:
+    """The inverse of `_conv_rules` (with `_attention_rules` for the keys
+    matching `attention`, and `_with_batch_stats`): "." -> "/", the renames
+    applied in order, then by leaf
+    - a 4-D `weight` back to a Conv kernel (kh, kw, in, out), or where its
+      JAX name matches a pattern of `transposed`, a ConvTranspose kernel
+      (flipped back); a 3-D `weight` to a 1-D Conv kernel (k, in, out);
+    - an attention projection's (out, h*hd) `weight` to (dim, h, hd), its
+      bias to (h, hd), the out projection's to (h, hd, dim);
+    - a 2-D `weight` of a module in `embeddings` to its `embedding`, of any
+      other module to a transposed Dense `kernel`; a 1-D `weight` to a
+      norm's `scale`;
+    - a BatchNorm's `running_mean` / `running_var` to `batch_stats/.../mean`
+      / `var`."""
+    flat = {}
+    for key, t in state_dict.items():
+        v = t.detach().float().cpu().numpy()
+        name = key.replace(".", "/")
+        for pat, rep in renames:
+            name = pat.sub(rep, name)
+        head, leaf = name.rsplit("/", 1) if "/" in name else ("", name)
+        mod = head.rsplit("/", 1)[-1]
+        group = "params"
+        if leaf in ("running_mean", "running_var"):
+            group, leaf = "batch_stats", leaf[len("running_"):]
+        elif attention is not None and re.match(attention, name) and mod != "out":
+            if leaf == "weight":
+                leaf, v = "kernel", v.T.reshape(v.shape[1], heads, -1)
+            else:
+                v = v.reshape(heads, -1)
+        elif attention is not None and re.match(attention, name) and leaf == "weight":
+            leaf, v = "kernel", v.T.reshape(heads, -1, v.shape[0])
+        elif leaf == "weight" and v.ndim == 4:
+            leaf = "kernel"
+            if any(p.search(name) for p in transposed):
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                v = v.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and v.ndim == 3:
+            leaf, v = "kernel", v.transpose(2, 1, 0)
+        elif leaf == "weight" and v.ndim == 2:
+            leaf, v = ("embedding", v) if mod in embeddings else ("kernel", v.T)
+        elif leaf == "weight" and v.ndim == 1:
+            leaf = "scale"
+        flat["/".join([group, head, leaf] if head else [group, leaf])] = \
+            np.ascontiguousarray(v, np.float32)
+    return flat
+
+
+def eres2netv2_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `eres2netv2_state_dict`, `batch_stats` included."""
+    return _conv_flat_params(state_dict, ((re.compile(r"^blocks/(stage\d+_block\d+)/"), r"\1/"),
+                                          (re.compile(r"/(conv|bn)/(\d+)/"), r"/\1_\2/")))
+
+
+def segmentation_flat_params(state_dict: dict, heads: int = 4) -> dict[str, np.ndarray]:
+    """The inverse of `segmentation_state_dict`."""
+    return _conv_flat_params(state_dict, (
+        (re.compile(r"^layers/(\d+)/"), r"layer_\1/"),
+        (re.compile(r"/ln1/"), r"/LayerNorm_0/"), (re.compile(r"/ln2/"), r"/LayerNorm_1/"),
+        (re.compile(r"/ff1/"), r"/Dense_0/"), (re.compile(r"/ff2/"), r"/Dense_1/"),
+    ), attention=r"^layer_\d+/attn/", heads=heads)
+
+
+def cttransformer_flat_params(state_dict: dict, heads: int = 4) -> dict[str, np.ndarray]:
+    """The inverse of `cttransformer_state_dict`."""
+    return _conv_flat_params(
+        state_dict, ((re.compile(r"^layers/(\d+)/(ln1|attn|ln2|ff1|ff2)/"), r"\2_\1/"),),
+        attention=r"^attn_\d+/", heads=heads, embeddings=("embed",))
+
+
+def emotion_net_flat_params(state_dict: dict, heads: int = 4) -> dict[str, np.ndarray]:
+    """The inverse of `emotion_net_state_dict`."""
+    return _conv_flat_params(state_dict, ((re.compile(r"^(ln|attn)/(\d+)/"), r"\1_\2/"),),
+                             attention=r"^attn_\d+/", heads=heads)
+
+
+def whisper_flat_params(state_dict: dict, heads: int = 4) -> dict[str, np.ndarray]:
+    """The inverse of `whisper_state_dict`."""
+    return _conv_flat_params(
+        state_dict, ((re.compile(r"^(enc_[a-z0-9]+|dec_blocks)/(\d+)/"), r"\1_\2/"),),
+        attention=r"^(enc_attn_\d+|dec_blocks_\d+/(self|cross)_attn)/", heads=heads,
+        embeddings=("tok_embed",))
+
+
+def tdfunet_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `tdfunet_state_dict`."""
+    return _conv_flat_params(state_dict, ((re.compile(r"^(enc|down|up|dec)/(\d+)/"), r"\1_\2/"),),
+                             transposed=(re.compile(r"^up_\d+/"),))
+
+
+def flow_enhancer_flat_params(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of `flow_enhancer_state_dict`."""
+    return _conv_flat_params(state_dict, transposed=(re.compile(r"^up\d+/"),))
+
+
 # ---------------- the separator zoo ----------------
 #
 # The zoo's modules keep the JAX names, so one set of layout rules serves
@@ -490,11 +593,33 @@ CONVERTERS = {"MossFormer2": mossformer2_state_dict, "Paraformer": paraformer_st
               "ERes2NetV2": eres2netv2_state_dict, "Apollo": apollo_state_dict,
               "FlowEnhancer": flow_enhancer_state_dict, "EmotionNet": emotion_net_state_dict,
               "CAMPlusPlus": campp_state_dict, "SenseVoice": sensevoice_state_dict,
-              "WhisperStyleASR": whisper_state_dict,
+              "WhisperStyleASR": whisper_state_dict, "DNSMOSNet": dnsmos_state_dict,
+              "SigMOSNet": dnsmos_state_dict,
               **{name: partial(zoo_state_dict, name=name) for name in ZOO_NAMES}}
 
 # port state dict -> the JAX flat parameter names
 INVERSE_CONVERTERS = {"MossFormer2": mossformer2_flat_params, "FsmnVADNet": fsmn_vad_flat_params,
                       "Apollo": apollo_flat_params, "Paraformer": paraformer_flat_params,
                       "SenseVoice": paraformer_flat_params,
+                      "ERes2NetV2": eres2netv2_flat_params, "CAMPlusPlus": _conv_flat_params,
+                      "SegmentationNet": segmentation_flat_params,
+                      "FlowEnhancer": flow_enhancer_flat_params, "TDFUNet": tdfunet_flat_params,
+                      "CTTransformerPunc": cttransformer_flat_params,
+                      "EmotionNet": emotion_net_flat_params,
+                      "WhisperStyleASR": whisper_flat_params, "DNSMOSNet": _conv_flat_params,
+                      "SigMOSNet": _conv_flat_params,
                       **{name: partial(zoo_flat_params, name=name) for name in ZOO_NAMES}}
+# the inverses that reshape attention projections by their head count
+_ATTENTION_MODELS = ("SegmentationNet", "CTTransformerPunc", "EmotionNet", "WhisperStyleASR")
+
+
+def flat_params(name: str, model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """`model`'s parameters (and BatchNorm statistics) in the JAX package's
+    flat names and layouts (`INVERSE_CONVERTERS[name]`), the attention
+    models' head count read from their attention modules."""
+    if name not in _ATTENTION_MODELS:
+        return INVERSE_CONVERTERS[name](model.state_dict())
+    heads = {m.heads for m in model.modules() if isinstance(getattr(m, "heads", None), int)}
+    if len(heads) != 1:
+        raise ValueError(f"{name}: attention modules with head counts {sorted(heads)}")
+    return INVERSE_CONVERTERS[name](model.state_dict(), heads=heads.pop())

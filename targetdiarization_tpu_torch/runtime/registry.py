@@ -5,8 +5,9 @@ the checkpoint's own `model_name` picks the class. The ported models are
 MossFormer2, Paraformer, CTTransformerPunc, FsmnVADNet, TDFUNet,
 SegmentationNet, ERes2NetV2, CAMPlusPlus, Apollo, FlowEnhancer, EmotionNet,
 SenseVoice, WhisperStyleASR and the ten separators of `models/zoo.py`;
-any other name raises. `save_checkpoint` writes MossFormer2, FsmnVADNet,
-Apollo, Paraformer, SenseVoice or a zoo model the way the JAX package does.
+any other name raises. `save_checkpoint` writes any of them, and the MOS
+estimators' `DNSMOSNet` and `SigMOSNet` (`train/mos.py`), the way the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from .convert import CONVERTERS, INVERSE_CONVERTERS
+from .convert import CONVERTERS, flat_params
 from .params import load_checkpoint
 
 
@@ -59,10 +60,10 @@ def from_pretrained(path: str) -> torch.nn.Module:
 def save_checkpoint(path: str, model: torch.nn.Module, model_name: str,
                     model_args: dict | None = None) -> None:
     """`model`'s weights under `path` as the JAX package stores them: the
-    flat `params.npz` in the JAX names and layouts (`INVERSE_CONVERTERS`)
-    and `model.json`. MossFormer2, FsmnVADNet, Apollo, Paraformer, SenseVoice
-    and the zoo's classes have an inverse."""
-    flat = INVERSE_CONVERTERS[model_name](model.state_dict())
+    flat `params.npz` in the JAX names and layouts (`convert.flat_params`)
+    and `model.json`; a BatchNorm's running statistics go under
+    `batch_stats/`, as flax keeps them."""
+    flat = flat_params(model_name, model)
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"), **flat)
     with open(os.path.join(path, "model.json"), "w") as f:

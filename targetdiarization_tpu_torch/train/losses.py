@@ -130,3 +130,11 @@ def mixit_loss(est: torch.Tensor, mixtures: torch.Tensor) -> torch.Tensor:
     est_sums = torch.einsum("ams,bst->bamt", assign, est)  # (B, A, M, T)
     per_assign = torch.mean(-snr(est_sums, mixtures[:, None]), dim=-1)  # (B, A)
     return torch.mean(torch.min(per_assign, dim=-1).values)
+
+
+def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor,
+                                              labels: torch.Tensor) -> torch.Tensor:
+    """optax.softmax_cross_entropy_with_integer_labels over the last axis:
+    logsumexp(logits) - logits[label], one value a row."""
+    label_logits = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - label_logits

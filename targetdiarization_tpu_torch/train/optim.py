@@ -393,15 +393,29 @@ def halving_exponential(base_lr: float, decay_every: int,
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule in float32: init_value x ((1 - alpha)
+    (0.5 (1 + cos(pi min(step, decay_steps) / decay_steps)))^exponent + alpha);
+    the decay part of `warmup_cosine_decay_schedule`, as in optax."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine decay needs positive decay_steps, got {decay_steps}")
+    f32 = np.float32
+
+    def schedule(step):
+        t = f32(min(step, decay_steps))
+        decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps)))
+        return _f32(f32(init_value) * (f32(1 - alpha) * decay ** f32(exponent) + f32(alpha)))
+
+    return schedule
+
+
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
                                  decay_steps: int, end_value: float = 0.0,
                                  exponent: float = 1.0) -> Callable[[int], float]:
     """optax.warmup_cosine_decay_schedule in float32: linear from init_value to
     peak_value over warmup_steps, then cosine decay to end_value at
     decay_steps (which counts the warmup)."""
-    if not decay_steps - warmup_steps > 0:
-        raise ValueError("the cosine decay needs decay_steps above warmup_steps, got "
-                         f"{decay_steps} and {warmup_steps}")
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
     f32 = np.float32
 
@@ -411,10 +425,7 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
         frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(warmup_steps)
         return f32(init_value - peak_value) * frac + f32(peak_value)
 
-    def cosine(count):
-        t = f32(min(count, decay_steps - warmup_steps))
-        decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps - warmup_steps)))
-        return f32(peak_value) * (f32(1 - alpha) * decay ** f32(exponent) + f32(alpha))
+    cosine = cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha, exponent)
 
     def schedule(step):
         return _f32(linear(step) if step < warmup_steps else cosine(step - warmup_steps))

@@ -1,7 +1,10 @@
-"""Bootstrap training recipes: the recipes that train through a kernel.
+"""Bootstrap training recipes.
 
-Counterpart of targetdiarization_tpu/train/recipes.py for the five recipes
-whose models run the port's kernels: `bootstrap_vad` (FsmnVADNet, the
+Counterpart of targetdiarization_tpu/train/recipes.py. Here are the five
+recipes whose models run the port's kernels, and the pieces every recipe
+shares; the other nine (`train/recipes_plain.py`: bootstrap_speaker,
+_segmentation, _enhancer, _mos, _sigmos, _denoiser, _punc, _emotion,
+_whisper) are importable from here too. The five: `bootstrap_vad` (FsmnVADNet, the
 dwconv kernel), `bootstrap_separator` (MossFormer2 through
 `SeparationTrainer`: FFConvM, gated FLASH, dwconv), `bootstrap_restorer`
 (Apollo, dwconv), `bootstrap_asr` (Paraformer, dwconv; its device data
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import prepare_kernels
 from . import optim, trainer
+from .losses import softmax_cross_entropy_with_integer_labels
 
 ASSETS = "assets"
 
@@ -676,8 +680,9 @@ def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor, labels: torch.T
 
 
 def _ce_class0(logits: torch.Tensor) -> torch.Tensor:
-    """optax.softmax_cross_entropy_with_integer_labels against class 0, mean."""
-    return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
+    """The integer-label cross-entropy against class 0, mean."""
+    zeros = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
+    return softmax_cross_entropy_with_integer_labels(logits, zeros).mean()
 
 
 @_reproducible
@@ -790,3 +795,19 @@ def bootstrap_sensevoice(steps: int = 3000, batch: int = 16,
     }
     log_fn(f"sensevoice bootstrap: {metrics}")
     return metrics
+
+
+# the recipes whose models run no kernel: `recipes_plain` reads this
+# module's pieces at import, so its names are fetched on first use here
+# (either module may be imported first)
+_PLAIN = ("_pseudo_speakers", "bootstrap_denoiser", "bootstrap_emotion", "bootstrap_enhancer",
+          "bootstrap_mos", "bootstrap_punc", "bootstrap_segmentation", "bootstrap_sigmos",
+          "bootstrap_speaker", "bootstrap_whisper")
+
+
+def __getattr__(name: str):
+    if name in _PLAIN:
+        from . import recipes_plain
+
+        return getattr(recipes_plain, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

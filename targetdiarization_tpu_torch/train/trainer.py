@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import prepare_kernels
-from ..runtime.convert import CONVERTERS, INVERSE_CONVERTERS
+from ..runtime.convert import CONVERTERS, flat_params
 from ..runtime.params import restore_pytree, save_pytree, unflatten
 from ..runtime.registry import save_checkpoint
 from .losses import mixit_loss, pit_si_sdr_loss
@@ -55,7 +55,7 @@ class TrainConfig:
 _ZEROS = re.compile(r"^(bias|b|beta|os_beta|in_b\d*|out_b|\w+_b[ih]|(uni|tail)_(bn|out)_b)$")
 _ONES = re.compile(r"^(scale|g|weight|gamma|pos_scale|in_w\d+|(uni|tail)_norm_w)$")
 _QUARTER = re.compile(r"^(alpha|prelu\d*)$")
-_NORMAL_002 = ("os_gamma", "tag_queries")
+_NORMAL_002 = ("os_gamma", "tag_queries", "dec_pos")
 # flax's truncated normal keeps the draws within two standard deviations,
 # and scales by this to keep the variance asked for
 _TRUNCATED_STD = 0.87962566103423978
@@ -72,6 +72,10 @@ def _lecun_normal(shape: tuple, gen: torch.Generator) -> torch.Tensor:
 
 def _flax_leaf(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
     leaf = name.rsplit("/", 1)[-1]
+    if name.startswith("batch_stats/"):  # flax BatchNorm's running mean 0, variance 1
+        return torch.zeros(shape) if leaf == "mean" else torch.ones(shape)
+    if leaf == "embedding":  # nn.Embed: a plain normal, variance 1 / features (the last axis)
+        return torch.randn(shape, generator=gen, dtype=torch.float64).float() * shape[-1] ** -0.5
     if _ZEROS.match(leaf):
         return torch.zeros(shape)
     if _ONES.match(leaf) or leaf == "w" and len(shape) == 1:
@@ -86,13 +90,13 @@ def _flax_leaf(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
 def init_params(model: torch.nn.Module, seed: int = 0) -> dict:
     """A state dict for `model` drawn at flax's initializer scales from a
     torch.Generator seeded by `seed`: each leaf in the JAX package's name
-    and layout (`INVERSE_CONVERTERS`: MossFormer2, the zoo, FsmnVADNet,
-    Apollo, Paraformer, SenseVoice), in sorted name order, then converted
-    back. The draws are not jax.random's (another generator), their
+    and layout (`runtime/convert.py::flat_params`), in sorted name order,
+    then converted back; BatchNorm statistics start at flax's mean 0 and
+    variance 1. The draws are not jax.random's (another generator), their
     distributions are. The trainer and the recipes (`train/recipes.py`)
     both draw here."""
     name = type(model).__name__
-    flat = INVERSE_CONVERTERS[name](model.state_dict())
+    flat = flat_params(name, model)
     gen = torch.Generator().manual_seed(seed)
     drawn = {k: _flax_leaf(k, v.shape, gen).numpy() for k, v in sorted(flat.items())}
     return CONVERTERS[name](unflatten(drawn))

@@ -11,7 +11,8 @@ the whisper engines, CAM++ and the cloud clients) on the shipped
 checkpoints, and the separator zoo (chip_smoke.py's zoo phase at small
 sizes, `build_model` with a zoo checkpoint); without aiohttp too, all but
 the server app; and training (chip_smoke.py's train phase at a small
-size, and the bootstrap recipes), with optax blocked too.
+size, and the bootstrap recipes, all fourteen), with optax blocked too, and
+`train/mos.py`'s estimators.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -470,6 +471,68 @@ def test_training_runs_without_jax_or_optax():
     `train/recipes.py`, the ASR one on its device data path through the
     preprocess chain), with optax blocked too."""
     proc = _run_blocked(_BLOCKED_TRAIN, extra=("aiohttp", "optax"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_RECIPES_PLAIN = textwrap.dedent("""
+    import numpy as np
+    import chip_smoke
+    from targetdiarization_tpu_torch.models import denoise
+    from targetdiarization_tpu_torch.train import metrics, mos
+    # train/mos.py alone: the shipped estimators through the metrics tracker
+    est = mos.MOSEstimator.from_pretrained("checkpoints/mos-bootstrap", device="cpu")
+    sig = mos.SigMOSEstimator.from_pretrained("checkpoints/sigmos-bootstrap", device="cpu")
+    x = chip_smoke.conversation(3.0, seed=46)
+    row = metrics.MetricsTracker(mos_estimator=est, sigmos_estimator=sig).update("a", x, x, x)
+    assert {"dnsmos_ovrl", "dnsmos_p808", "mos_ovrl"} <= set(row), row
+    assert all(np.isfinite(v) for k, v in row.items() if k != "key"), row
+    # the plain recipes phase at tiny sizes on the CPU (the MDX frames cut to
+    # 32): every recipe, no kernel launched, its checkpoints reloaded
+    denoise.DIM_T = 32
+    tiny = dict(steps=2, batch=2)
+    runs = (("spk", "bootstrap_speaker", dict(tiny, seconds=1.0), "spk"),
+            ("seg", "bootstrap_segmentation", dict(tiny, seconds=1.0), "seg"),
+            ("enh", "bootstrap_enhancer", dict(tiny, seconds=0.25, ch=8), "enh"),
+            ("mos", "bootstrap_mos", dict(tiny, pool=2), "mos"),
+            ("sigmos", "bootstrap_sigmos", dict(tiny, pool=2), "sigmos"),
+            ("den", "bootstrap_denoiser", dict(tiny, batch=1), "den"),
+            ("punc", "bootstrap_punc", dict(tiny, eval_utts=1), "punc"),
+            ("emo", "bootstrap_emotion", dict(tiny, seconds=0.5, eval_utts=1), "emo"),
+            ("whisper", "bootstrap_whisper",
+             dict(tiny, seconds=1.0, eval_utts=1, n_corpus=2, dim=32, enc_layers=1,
+                  dec_layers=1, ffn=64, device_synth=True, fresh_source="device",
+                  phase1_steps=0, aug_frac=0.5), "whisper"))
+    totals = chip_smoke.check_recipes_plain(device="cpu", runs=runs)
+    assert totals and not any(totals.values()), totals
+""")
+
+
+def test_plain_recipes_and_mos_run_without_jax_or_optax():
+    """`train/mos.py`'s estimators on the shipped checkpoints through the
+    metrics tracker, and chip_smoke.py's plain recipes phase at tiny sizes
+    (the nine recipes of `train/recipes_plain.py`, the whisper one on
+    device batches through the preprocess chain), with optax blocked too."""
+    proc = _run_blocked(_BLOCKED_RECIPES_PLAIN, extra=("aiohttp", "optax"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("first,then", [("recipes_plain", "recipes"),
+                                         ("recipes", "recipes_plain")])
+def test_recipe_modules_import_in_either_order(first, then):
+    """`train/recipes_plain.py` reads `train/recipes.py`'s pieces and
+    `train/recipes.py` serves its recipes: a fresh interpreter imports
+    either module first and sees the same nine recipes through both."""
+    proc = _run_blocked(textwrap.dedent(f"""
+        from targetdiarization_tpu_torch.train import {first}
+        from targetdiarization_tpu_torch.train import {then}
+        from targetdiarization_tpu_torch.train import recipes, recipes_plain
+        from targetdiarization_tpu_torch.train.recipes import bootstrap_speaker
+        assert bootstrap_speaker is recipes_plain.bootstrap_speaker
+        for name in recipes._PLAIN:
+            assert getattr(recipes, name) is getattr(recipes_plain, name), name
+    """), extra=("aiohttp", "optax"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 

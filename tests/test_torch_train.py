@@ -461,6 +461,25 @@ def test_init_draws_at_flax_scales():
     assert torch.equal(w["mask_net.prelu"], torch.full((1,), 0.25))
 
 
+def test_init_draws_embeddings_as_flax():
+    """nn.Embed tables: flax's plain (untruncated) normal of variance
+    1 / features. The draw's standard deviation and its share beyond two of
+    them agree with flax.linen.Embed.init's on a table of the same shape."""
+    import flax.linen as fnn
+
+    from targetdiarization_tpu_torch.models.punctuation import CTTransformerPunc
+
+    vocab, dim = 4000, 64
+    got = init_params(CTTransformerPunc(vocab_size=vocab, dim=dim, n_layers=1), 5)["embed.weight"]
+    want = np.asarray(fnn.Embed(vocab, dim).init(jax.random.PRNGKey(5), jnp.zeros(1, jnp.int32))[
+        "params"]["embedding"])
+    assert tuple(got.shape) == want.shape == (vocab, dim)
+    got = got.double().numpy()
+    assert abs(got.std() * dim ** 0.5 - 1.0) < 0.01 and abs(want.std() * dim ** 0.5 - 1.0) < 0.01
+    tail = lambda x: float(np.mean(np.abs(x) > 2 * dim ** -0.5))  # noqa: E731
+    assert abs(tail(got) - tail(want)) < 0.005 and tail(got) > 0.04  # 0.0455 for a normal
+
+
 def test_more_than_one_device_raises():
     with pytest.raises(ValueError, match="one card"):
         _port_trainer(n_devices=2)

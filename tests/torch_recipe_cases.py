@@ -57,12 +57,12 @@ def _voice_b(audio: np.ndarray) -> np.ndarray:
                      audio).astype(np.float32)
 
 
-def fixture_dir(root: str) -> str:
-    """`chat_mix.wav` (the second voice over the first, 4.8 s) and
+def fixture_dir(root: str, chat_seconds: float = 4.8) -> str:
+    """`chat_mix.wav` (the second voice over the first, `chat_seconds`) and
     `female_a.wav` (the first voice alone, 4 s) under `root`."""
     os.makedirs(root, exist_ok=True)
     write_wav(os.path.join(root, "female_a.wav"), _voice(4.0, 1), SR)
-    mix = _voice_b(_voice(6.0, 2)) + _voice(4.8, 3)
+    mix = _voice_b(_voice(1.25 * chat_seconds, 2)) + _voice(chat_seconds, 3)
     write_wav(os.path.join(root, "chat_mix.wav"), 0.5 * mix, SR)
     return root
 
@@ -87,14 +87,16 @@ def _jax_losses(mp, losses: list):
 
 
 def _capture_init(mp, cls, store: dict):
-    """`cls.init` kept in `store` as numpy, and run under jit (the same
-    draws; an eager flax init of a model with Pallas kernels in interpret
-    mode takes tens of seconds)."""
+    """`cls.init` kept in `store` as numpy (every call's tree in
+    `store["all"]`, in order), and run under jit (the same draws; an eager
+    flax init of a model with Pallas kernels in interpret mode takes tens of
+    seconds)."""
     orig = cls.init
 
     def init(self, *args, **kwargs):
         tree = jax.jit(lambda *a: orig(self, *a, **kwargs))(*args)
         store["params"] = jax.tree_util.tree_map(np.asarray, tree)
+        store.setdefault("all", []).append(store["params"])
         return tree
 
     mp.setattr(cls, "init", init)
@@ -136,8 +138,9 @@ def run_both(tmp: str, assets: str, name: str, jax_kwargs: dict, port_kwargs: di
              jax_cls=None, jax_init=None, fbank_floor: float | None = None,
              patches: tuple = ()) -> dict:
     """The JAX recipe `name` and the port's, from one initial parameter tree
-    (`jax_cls.init`'s draw in the recipe, or `jax_init()`), each writing its
-    checkpoint under `tmp`; with `fbank_floor`, both packages' fbank
+    (`jax_cls.init`'s draw in the recipe, or `jax_init()`; the port's k-th
+    seeded draw takes the k-th `jax_cls.init`, and with neither, the
+    recipes load theirs), each writing its checkpoint under `tmp`; with `fbank_floor`, both packages' fbank
     floored there (`_floor_fbank`); `patches`, (object, name, value)
     triples, hold for both runs. Returns both runs' metrics, log lines,
     exact step losses and checkpoint paths, CIF token counts, and the
@@ -160,13 +163,17 @@ def run_both(tmp: str, assets: str, name: str, jax_kwargs: dict, port_kwargs: di
             out["jax"]["metrics"] = getattr(jrecipes, name)(
                 checkpoint_dir=path, log_fn=out["jax"]["log"].append, **jax_kwargs)
             out["jax"]["path"] = path
-        init = store["params"] if jax_cls is not None else jax_init()
-        out["init"] = init
+        inits = store["all"] if jax_cls is not None else [jax_init()] if jax_init else []
+        out["init"], out["inits"] = (inits[0] if inits else None), inits
+        drawn = []
 
         def port_init(model, seed=0):
-            return CONVERTERS[type(model).__name__](init)
+            tree = inits[min(len(drawn), len(inits) - 1)]
+            drawn.append(seed)
+            return CONVERTERS[type(model).__name__](tree)
 
-        mp.setattr(ttrainer, "init_params", port_init)
+        if inits:
+            mp.setattr(ttrainer, "init_params", port_init)
         orig_vg = trecipes._value_and_grad
 
         def value_and_grad(loss_fn, params):
@@ -229,14 +236,17 @@ def saved_state(path: str, name: str) -> dict:
         return CONVERTERS[name](unflatten({k: z[k] for k in z.files}))
 
 
-# attention key biases: their gradient is zero in exact arithmetic (the
-# softmax is invariant to one shift of all of a query's scores), so Adam
-# moves them by its normalization of rounding noise, about the learning
-# rate either way in either package
-NOISE_LEAVES = re.compile(r"attn\.k\.bias$")
+# attention key biases and the attentive statistics pool's score bias (the
+# softmax is invariant to one shift of all of a query's scores), and
+# ERes2NetV2's AFF gate_down bias (its GroupNorm has one channel a group,
+# whose mean it subtracts): their gradient is zero in exact arithmetic, so
+# Adam moves them by its normalization of rounding noise, about the
+# learning rate either way in either package
+NOISE_LEAVES = re.compile(
+    r"(attn(\.\d+)?\.(k|key)\.bias|asp\.att_v\.bias|aff\.gate_down\.bias)$")
 
 
-def check_saved_params(run: dict, name: str) -> float:
+def check_saved_params(run: dict, name: str, init_tree: dict | None = None) -> float:
     """Both checkpoints hold the same parameters, and each leaf's change
     over the steps agrees with JAX's within 10 % of its norm. (Not element
     by element: Adam's first steps move a weight by about the learning rate
@@ -244,9 +254,10 @@ def check_saved_params(run: dict, name: str) -> float:
     noise moves either way in either package; FsmnVADNet's step-1 gradient
     at flax's initialization agrees between the packages to about 2e-3 of
     its largest element, on the same features.) Leaves in NOISE_LEAVES are
-    held only to the largest change of the others. Returns that change."""
+    held only to the largest change of the others. `init_tree` is the
+    initial tree where it is not the run's first draw. Returns that change."""
     got, want = saved_state(run["port"]["path"], name), saved_state(run["jax"]["path"], name)
-    init = CONVERTERS[name](run["init"])
+    init = CONVERTERS[name](run["init"] if init_tree is None else init_tree)
     assert sorted(got) == sorted(want) == sorted(init)
     moved = max(float((want[k] - init[k]).abs().max()) for k in want
                 if not NOISE_LEAVES.search(k))
