@@ -41,7 +41,13 @@ their engines, and drive the recipes whose models run no kernel
 (`recipes_plain`): `train/recipes_plain.py`'s nine (the speaker one with
 ERes2NetV2 and CAM++, the whisper one on its corpus and on device batches)
 at the shipped checkpoints' widths for 3 steps, no kernel launched, their
-checkpoints reloaded against the models as saved.
+checkpoints reloaded against the models as saved, and drive the readers of
+reference checkpoints (`port_rules`): the 512/24 MossFormer2, Apollo and
+ConvTasNet from seeded state dicts in the reference (look2hear) layout
+through `runtime/port_rules.py`, one float32 forward each with the kernels
+and under the plain versions, and the DNSMOS and SigMOS nets from
+synthetic ONNX graphs through `runtime/onnx_io.py` against its numpy
+evaluator.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -81,7 +87,10 @@ launches), and the recipes (each recipe's ms a step, peak memory,
 launches a step against the prediction from the model, step losses with
 the kernels and plain, metrics, the served checkpoint's agreement), and
 the plain recipes (each run's ms a step, peak GB, losses, launches, the
-reloaded checkpoints' agreement, `phase_s`).
+reloaded checkpoints' agreement, `phase_s`), and the reference checkpoints
+(each conversion's host seconds, each forward's ms with the kernels and
+plain, launches against the model's prediction, SI-SDR of the kernels
+against plain; each MOS net's ms and error against `evaluate_onnx`).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -1703,6 +1712,7 @@ def check_infer() -> dict:
 # ---------------- the slice: TargetDiarizationStream.infer_stream ----------------
 
 STREAM_SEEDS = (13, 14, 15, 16)  # s1 is the first; s4 runs all four at once
+PROFILE_STREAM_S = 6.0  # the profiled synchronous session's length
 
 
 def load_stream(compute_dtype: str | None = None, device: str = "cuda"):
@@ -1985,8 +1995,11 @@ def check_stream(seconds: float = 20.0, device: str = "cuda") -> dict:
                              f"check_dwconv holds {sorted(APOLLO_DW_SHAPES)}")
     if not within_s1_limits(agree):
         raise AssertionError(f"s1: the synchronous session against the async one: {agree}")
-    profile_call(lambda: stream_session(model, audio, enroll),
-                 "TargetDiarizationStream.infer_stream, s1 sync", top=12, spans=True)
+    # profiled: s1's first PROFILE_STREAM_S seconds (the profiler's own work
+    # after the call grows with the session: 86-91 s for the whole 20 s)
+    profile_call(lambda: stream_session(model, audio[: int(PROFILE_STREAM_S * SR)], enroll),
+                 f"TargetDiarizationStream.infer_stream, s1 sync, first {PROFILE_STREAM_S:g} s",
+                 top=12, spans=True)
     model.async_flush = True
     unrecord(model)
 
@@ -2614,19 +2627,19 @@ def check_engines(device: str = "cuda") -> dict:
 ZOO_KERNEL_CLASSES = ("ConvTasNet", "MossFormer")  # the classes that run kernels
 
 
-def zoo_per_forward(model) -> dict:
-    """Kernel launches of one forward of a zoo model: a dwconv for each
+def kernel_forward(model) -> dict:
+    """Kernel launches of one forward of `model` (after `prepare_kernels`):
+    an FFConvM launch per FFConvM module, a gated FLASH per FlashBlock, and
+    `dw_per_forward`'s dwconv launches: for the zoo, a dwconv for each
     depthwise conv of ConvTasNet's TCN blocks (24 at the class defaults),
     three FFConvM and one gated FLASH for each of MossFormer's FlashBlocks
     (72 and 24)."""
-    from targetdiarization_tpu_torch.models.restoration import DepthwiseConv1d
     from targetdiarization_tpu_torch.models.separation import FFConvM, FlashBlock
 
     mods = list(model.modules())
-    return {k: n for k, n in (("dwconv", sum(isinstance(m, DepthwiseConv1d) for m in mods)),
-                              ("ffconvm", sum(isinstance(m, FFConvM) for m in mods)),
-                              ("flash_gated", sum(isinstance(m, FlashBlock) for m in mods)))
-            if n}
+    return {"ffconvm": sum(isinstance(m, FFConvM) for m in mods),
+            "flash_gated": sum(isinstance(m, FlashBlock) for m in mods),
+            "flash_group": 0, "dwconv": dw_per_forward(model)}
 
 
 def seeded_zoo_model(name: str, args: dict | None = None, seed: int = 11):
@@ -2753,9 +2766,9 @@ def zoo_class(name: str, root: str, args: dict | None, device: str, seconds: tup
     torch.cuda.synchronize()
     launches = read_launches()
     batch_calls = list(e16.calls)
-    per = zoo_per_forward(e16.model)
+    per = kernel_forward(e16.model)
     want = {k: n * len(separate_calls + batch_calls) for k, n in per.items()}
-    if any(launches[k] != n for k, n in want.items()) or (not want and any(launches.values())):
+    if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want} from "
                              f"{separate_calls + batch_calls}")
     f32 = e32.separate(mix)
@@ -2823,7 +2836,7 @@ def zoo_infer(name: str, path: str, device: str = "cuda") -> dict:
             emit("zoo_infer", name=name, path="bf16 kernels", wall_s=wall,
                  rtfx=len(audio) / SR / wall, separator_forwards=forwards,
                  entries=out["main"]["entries"], launches=out["launches"])
-            want = {k: n * len(forwards) for k, n in zoo_per_forward(td.ap.separator.model).items()}
+            want = {k: n * len(forwards) for k, n in kernel_forward(td.ap.separator.model).items()}
             if not forwards or any(out["launches"][k] < n for k, n in want.items()):
                 raise AssertionError(f"{name} infer: launches {out['launches']}, separator "
                                      f"forwards {forwards}")
@@ -3254,7 +3267,7 @@ def check_train(device: str = "cuda", checkpoint: str = CHECKPOINT, batch: int =
         # ConvTasNet: dwconv's dx at dilations up to 128 (phase tiles) on a training path
         tcn = SeparationTrainer(ConvTasNet(**(convtasnet_args or {})), cfg=TrainConfig(
             **TRAIN_SETTINGS), seed=3, device=device)
-        n_dw = zoo_per_forward(tcn.model)["dwconv"]
+        n_dw = kernel_forward(tcn.model)["dwconv"]
         small = next(DynamicMixDataset(pools, MixConfig(segment_seconds=seconds),
                                        seed=2).batches(convtasnet_batch, 1))
         tcn_grads = grads_against_plain(tcn, small, "ConvTasNet")
@@ -3777,6 +3790,167 @@ def check_recipes_plain(device: str = "cuda", runs: tuple = RECIPE_RUNS_PLAIN) -
     return total
 
 
+# ---------------- reference checkpoints: port_rules.py and onnx_io.py ----------------
+
+REST_CHECKPOINT = os.path.join(ROOT, "checkpoints", "rest-bootstrap")
+# (port class, checkpoint whose model.json gives the width, or None for the
+# class defaults) of the separators converted from reference-layout dicts
+PORT_RULES_MODELS = (("MossFormer2", CHECKPOINT), ("Apollo", REST_CHECKPOINT), ("ConvTasNet", None))
+# (estimator, n_out, ch, input shape): DNSMOS's SIG/BAK/OVRL and P.808 nets
+# on one 9.01 s mel (900 frames), SigMOS's on 200 frames, at the class widths
+MOS_NETS = (("DNSMOSNet", 3, 32, (1, 900, 120)), ("DNSMOSNet", 1, 32, (1, 900, 120)),
+            ("SigMOSNet", 7, 32, (1, 3, 200, 481)))
+MOS_TOL = 2e-4  # |card - evaluate_onnx| <= MOS_TOL (1 + |evaluate_onnx|)
+
+
+def port_rules_models() -> list:
+    def args(path):
+        if path is None:
+            return {}
+        with open(os.path.join(path, "model.json")) as f:
+            return json.load(f)["model_args"]
+
+    return [(name, args(path)) for name, path in PORT_RULES_MODELS]
+
+
+def port_rules_separator(name: str, args: dict, wav, device: str) -> dict:
+    """One architecture: a seeded reference-layout state dict, converted by
+    `port_rules`, strict-loaded into the port class, placed, its kernels
+    prepared; one float32 forward with the kernels (counted) and one under
+    `plain_kernels()`. Returns the kernels' launches."""
+    import torch
+
+    from targetdiarization_tpu_torch.ops.kernels import prepare_kernels
+    from targetdiarization_tpu_torch.runtime import port_rules
+    from targetdiarization_tpu_torch.runtime.registry import get_model_cls
+    from targetdiarization_tpu_torch.tools.reference_layout import reference_state_dict
+
+    t = time.perf_counter()
+    ref = reference_state_dict(name, args, seed=41)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sd = port_rules.RULES[name](ref)
+    convert_s = time.perf_counter() - t
+    t = time.perf_counter()
+    model = get_model_cls(name)(**args)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device).eval()
+    prepare_kernels(model)
+    sync(device)
+    load_s = time.perf_counter() - t
+    want = kernel_forward(model)
+
+    def forward():
+        with torch.inference_mode():
+            out = model(wav)
+        sync(device)
+        return out.float().cpu().numpy()
+
+    def timed():
+        t = time.perf_counter()
+        out = forward()
+        return out, (time.perf_counter() - t) * 1e3
+
+    forward()  # warm-up: the shapes' cuDNN and cuBLAS set-up
+    reset_launches()
+    kern, kern_ms = timed()
+    launches = read_launches()
+    with plain_kernels():
+        forward()
+        plain, plain_ms = timed()
+    streams = list(zip(kern.reshape(-1, kern.shape[-1]), plain.reshape(-1, plain.shape[-1])))
+    db = min(si_sdr(k, p) for k, p in streams)
+    emit("port_rules_model", name=name, args=args or "class defaults",
+         params=sum(p.numel() for p in model.parameters()), reference_keys=len(ref),
+         build_s=build_s, convert_s=convert_s, load_prepare_s=load_s, audio_s=wav.shape[-1] / SR,
+         out_shape=list(kern.shape), kernels_ms=kern_ms, plain_ms=plain_ms,
+         launches=launches, predicted=want, f32_kernels_vs_f32_plain_db=db)
+    fails = []
+    if not (np.isfinite(kern).all() and np.isfinite(plain).all()) or kern.shape != plain.shape \
+            or kern.shape[-1] != wav.shape[-1]:
+        fails.append(f"outputs {kern.shape}, {plain.shape} not finite of the input's length")
+    if launches != want or not any(want.values()):
+        fails.append(f"launches {launches}, predicted {want}")
+    if not db >= 40.0:
+        fails.append(f"kernels against plain {db} dB < 40 dB")
+    if fails:
+        raise AssertionError(f"port_rules {name}: " + "; ".join(fails))
+    return launches
+
+
+def port_rules_mos(cls_name: str, n_out: int, ch: int, shape: tuple, seed: int,
+                   device: str) -> None:
+    """One MOS net from a synthetic graph in the released layout: written
+    with `save_onnx`, read back with `load_onnx`, loaded by
+    `onnx_to_state_dict`, scored on the device against `evaluate_onnx`."""
+    import torch
+
+    from targetdiarization_tpu_torch.runtime import onnx_io
+    from targetdiarization_tpu_torch.tools import reference_layout
+    from targetdiarization_tpu_torch.train import mos
+
+    rng = np.random.default_rng(seed)
+    build = reference_layout.dnsmos_graph if cls_name == "DNSMOSNet" \
+        else reference_layout.sigmos_graph
+    t = time.perf_counter()
+    data = onnx_io.save_onnx(build(rng, ch=ch, n_out=n_out))
+    graph = onnx_io.load_onnx(data)
+    net = getattr(mos, cls_name)(n_out=n_out, ch=ch)
+    onnx_io.onnx_to_state_dict(graph, net)
+    net = net.to(device).eval()
+    convert_s = time.perf_counter() - t
+    x = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    t = time.perf_counter()
+    want = onnx_io.evaluate_onnx(graph, {"input_1": x[:, None] if len(shape) == 3 else x})
+    want = want["output_1"]
+    evaluate_s = time.perf_counter() - t
+    inp = torch.from_numpy(x).to(device)
+
+    def score():
+        with torch.inference_mode():
+            out = net(inp)
+        sync(device)
+        return out.cpu().numpy()
+
+    score()  # warm-up
+    t = time.perf_counter()
+    got = score()
+    ms = (time.perf_counter() - t) * 1e3
+    err = float(np.abs(got - want).max())
+    emit("port_rules_mos", net=cls_name, n_out=n_out, ch=ch, input=list(shape),
+         onnx_bytes=len(data), convert_s=convert_s, evaluate_onnx_s=evaluate_s, ms=ms,
+         max_abs_err=err, max_abs_out=float(np.abs(want).max()))
+    if got.shape != want.shape or not np.all(np.abs(got - want) <= MOS_TOL * (1 + np.abs(want))):
+        raise AssertionError(f"port_rules {cls_name}({n_out}): {got.shape} against "
+                             f"evaluate_onnx {want.shape}, max |diff| {err}")
+
+
+def check_port_rules(device: str = "cuda", models: list | None = None, seconds: float = 4.0,
+                     mos_nets: tuple = MOS_NETS) -> dict:
+    """The reference-checkpoint phase: the 512/24 MossFormer2, Apollo
+    (`rest-bootstrap`'s width) and ConvTasNet (class defaults) from seeded
+    reference-layout state dicts through `runtime/port_rules.py`, each one
+    float32 forward on a two-voice mix with the kernels (launches held
+    against the model's prediction) and under `plain_kernels()` (SI-SDR at
+    least 40 dB); then the MOS nets from synthetic ONNX graphs through
+    `runtime/onnx_io.py`, scored against `evaluate_onnx`. Returns the
+    kernels' launches."""
+    import torch
+
+    t0 = time.time()
+    wav = torch.from_numpy(two_voice_mix(seconds, seed=31))[None].to(device)
+    totals = {k: 0 for k in read_launches()}
+    for name, args in models if models is not None else port_rules_models():
+        for k, v in port_rules_separator(name, args, wav, device).items():
+            totals[k] += v
+    for i, (cls_name, n_out, ch, shape) in enumerate(mos_nets):
+        port_rules_mos(cls_name, n_out, ch, shape, 51 + i, device)
+    emit("port_rules", phase_s=time.time() - t0, launches=totals)
+    if not all(totals[k] > 0 for k in ("ffconvm", "flash_gated", "dwconv")):
+        raise AssertionError(f"the converted models missed a kernel: {totals}")
+    return totals
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -3887,6 +4061,7 @@ def main() -> None:
     path_launches["train"], rows["dwconv_dx"] = check_train()
     path_launches["recipes"] = check_recipes()
     path_launches["recipes_plain"] = check_recipes_plain()
+    path_launches["port_rules"] = check_port_rules()
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-All of `csrc/*.cu` compile in one `nvcc` call into one shared library with
-a plain `extern "C"` interface (no PyTorch headers, so a build takes
-seconds). The library lands in `_build/` inside the package, named by a
+Each of `csrc/*.cu` compiles to an object in its own `nvcc` process, all
+started together, and one more `nvcc` call links them into one shared
+library with a plain `extern "C"` interface (no PyTorch headers, so a build
+takes seconds). The library lands in `_build/` inside the package, named by a
 hash of the sources and flags, and is built at first use. Each wrapper
 declares its C function's ctypes argument types with `declare`, which
 records them in SIGNATURES (the tests hold them against the sources) and
@@ -59,19 +60,43 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtd_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _spawn(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs: list) -> list:
+    """Wait for every (cmd, Popen) of `procs`; raise with the first failed
+    command and its output. Returns each one's stderr."""
+    results = []
+    for cmd, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        results.append((cmd, proc.returncode, out, err))
+    for cmd, rc, out, err in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}")
+    return [err for *_, err in results]
+
+
 def build(path: str) -> None:
-    """Compile every csrc/*.cu into `path` in one nvcc call."""
+    """Compile each csrc/*.cu to an object, the nvcc processes started
+    together, then link the objects into `path`."""
     cu, _ = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(ptxas_log(path), "w") as f:  # each kernel's registers, spills, shared memory
-        f.write(proc.stderr)
-    os.replace(tmp, path)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    try:
+        reports = _wait([_spawn([nvcc, *compile_flags, "-c", "-o", obj, src])
+                         for src, obj in zip(cu, objs)])
+        _wait([_spawn([nvcc, *NVCC_FLAGS, "-o", tmp, *objs])])
+        with open(ptxas_log(path), "w") as f:  # each kernel's registers, spills, shared memory
+            f.write("".join(reports))
+        os.replace(tmp, path)
+    finally:
+        for leftover in [tmp, *objs]:
+            if os.path.exists(leftover):
+                os.remove(leftover)
 
 
 def ptxas_log(path: str) -> str:

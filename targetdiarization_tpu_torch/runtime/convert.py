@@ -35,6 +35,10 @@ Layout rules:
 - Apollo's band banks (`uni_bn_w` (79, 2 bw + 1, D), `uni_out_w`
   (79, D, 4 bw), the tail band's, their biases and norms) keep their
   layouts.
+
+The layer converters below (`convert_linear` ... `verify_tree_shapes`) are
+the JAX package's (its `runtime/convert.py`): torch layouts to flax's, used
+by `runtime/port_rules.py` to read reference state dicts.
 """
 
 from __future__ import annotations
@@ -44,6 +48,121 @@ from functools import partial
 
 import numpy as np
 import torch
+
+
+def to_numpy(x):
+    """torch tensor (any device; bf16 widened to float32) or array -> numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype is torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def convert_linear(weight, bias=None):
+    """torch Linear -> {'kernel', 'bias'} flax Dense params."""
+    out = {"kernel": to_numpy(weight).T}
+    if bias is not None:
+        out["bias"] = to_numpy(bias)
+    return out
+
+
+def convert_conv1d(weight, bias=None, depthwise: bool = False):
+    """torch Conv1d (O, I/g, K) -> flax Conv kernel (K, I/g, O)."""
+    out = {"kernel": np.transpose(to_numpy(weight), (2, 1, 0))}
+    if bias is not None:
+        out["bias"] = to_numpy(bias)
+    return out
+
+
+def convert_conv2d(weight, bias=None):
+    """torch Conv2d (O, I/g, H, W) -> flax Conv kernel (H, W, I/g, O)."""
+    out = {"kernel": np.transpose(to_numpy(weight), (2, 3, 1, 0))}
+    if bias is not None:
+        out["bias"] = to_numpy(bias)
+    return out
+
+
+def convert_norm(weight=None, bias=None):
+    """torch LayerNorm/BatchNorm affine -> flax {'scale', 'bias'}."""
+    out = {}
+    if weight is not None:
+        out["scale"] = to_numpy(weight)
+    if bias is not None:
+        out["bias"] = to_numpy(bias)
+    return out
+
+
+def convert_embedding(weight):
+    return {"embedding": to_numpy(weight)}
+
+
+class ConversionRules:
+    """Declarative state-dict -> param-tree mapping.
+
+    rules: list of (regex, target_path_template, converter_kind) where
+    converter_kind is one of linear, conv1d, conv2d, norm, embedding, raw.
+    Weight/bias pairs are grouped by the stripped parameter stem.
+    """
+
+    KIND_FNS = {
+        "linear": convert_linear,
+        "conv1d": convert_conv1d,
+        "conv2d": convert_conv2d,
+        "norm": convert_norm,
+        "embedding": lambda w, b=None: convert_embedding(w),
+        "raw": lambda w, b=None: {"value": to_numpy(w)},
+    }
+
+    def __init__(self, rules: list):
+        self.rules = [(re.compile(p), tgt, kind) for p, tgt, kind in rules]
+
+    def convert(self, state_dict: dict) -> dict:
+        """torch state_dict -> nested flax-style param dict."""
+        groups: dict = {}
+        for key, tensor in state_dict.items():
+            stem, _, leaf = key.rpartition(".")
+            if leaf in ("weight", "bias", "running_mean", "running_var", "gamma", "beta"):
+                groups.setdefault(stem, {})[leaf] = tensor
+            else:
+                groups.setdefault(key, {})["weight"] = tensor
+        tree: dict = {}
+        unmatched = []
+        for stem, parts in groups.items():
+            for pattern, target, kind in self.rules:
+                m = pattern.fullmatch(stem)
+                if not m:
+                    continue
+                converted = self.KIND_FNS[kind](parts.get("weight"), parts.get("bias"))
+                node = tree
+                keys = target.format(*m.groups()).split("/")
+                for k in keys[:-1]:
+                    node = node.setdefault(k, {})
+                node[keys[-1]] = converted if kind != "raw" else converted["value"]
+                break
+            else:
+                unmatched.append(stem)
+        if unmatched:
+            raise KeyError(f"no conversion rule for: {sorted(unmatched)[:10]}")
+        return tree
+
+
+def verify_tree_shapes(converted: dict, template: dict, path: str = ""):
+    """Assert the converted tree matches a template's shapes (any leaves with
+    a `shape`); returns the list of checked leaf paths."""
+    checked = []
+    for key, val in template.items():
+        sub = f"{path}/{key}" if path else key
+        if key not in converted:
+            raise KeyError(f"missing converted param: {sub}")
+        if isinstance(val, dict):
+            checked += verify_tree_shapes(converted[key], val, sub)
+        else:
+            got = np.asarray(converted[key]).shape
+            want = tuple(val.shape)
+            if got != want:
+                raise ValueError(f"shape mismatch at {sub}: {got} vs {want}")
+            checked.append(sub)
+    return checked
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:

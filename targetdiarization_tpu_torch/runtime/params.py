@@ -11,6 +11,9 @@ stored in float16 is widened on load and never computed in float16.
 optimizer state: nested dicts, lists and tuples of tensors and Python numbers)
 as `{name}_leaves.npz`, one array a leaf in leaf order (dicts by sorted
 key), restored into a template of the same structure.
+
+`param_count` and `tree_cast` take a module or a nested dict of tensors or
+arrays.
 """
 
 from __future__ import annotations
@@ -96,3 +99,25 @@ def restore_pytree(path: str, like, name: str = "state"):
     if n != len(leaves):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, template has {n}")
     return _rebuild(like, iter(leaves))
+
+
+def param_count(params) -> int:
+    """The number of parameters of a module (its `parameters()`), or of the
+    leaves of a nested dict of tensors or arrays."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(int(np.prod(np.shape(leaf))) for leaf in tree_leaves(params))
+
+
+def tree_cast(params, dtype):
+    """Cast every floating leaf to `dtype`: a module's parameters and
+    buffers in place (the module is returned), or a nested dict of tensors
+    (torch dtype) or numpy arrays (numpy dtype) into a new dict."""
+    if isinstance(params, torch.nn.Module):
+        return params.to(dtype)
+    if isinstance(params, dict):
+        return {k: tree_cast(v, dtype) for k, v in params.items()}
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype) if params.is_floating_point() else params
+    a = np.asarray(params)
+    return a.astype(dtype) if np.issubdtype(a.dtype, np.floating) else a

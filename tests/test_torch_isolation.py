@@ -12,7 +12,9 @@ checkpoints, and the separator zoo (chip_smoke.py's zoo phase at small
 sizes, `build_model` with a zoo checkpoint); without aiohttp too, all but
 the server app; and training (chip_smoke.py's train phase at a small
 size, and the bootstrap recipes, all fourteen), with optax blocked too, and
-`train/mos.py`'s estimators.
+`train/mos.py`'s estimators, and the readers of reference checkpoints
+(`runtime/port_rules.py`, `runtime/onnx_io.py`, chip_smoke.py's port_rules
+phase at small sizes).
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -514,6 +516,64 @@ def test_plain_recipes_and_mos_run_without_jax_or_optax():
     (the nine recipes of `train/recipes_plain.py`, the whisper one on
     device batches through the preprocess chain), with optax blocked too."""
     proc = _run_blocked(_BLOCKED_RECIPES_PLAIN, extra=("aiohttp", "optax"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_PORT_RULES = textwrap.dedent("""
+    import chip_smoke
+    import targetdiarization_tpu_torch.runtime as runtime
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwop
+    from targetdiarization_tpu_torch.ops.kernels import dwconv as dwk, ffconvm as ffk, flash as flk
+    from targetdiarization_tpu_torch.runtime import onnx_io, port_rules
+    from targetdiarization_tpu_torch.tools import reference_layout
+    # the runtime layer's names
+    x, n = runtime.pad_to_bucket(np.ones((2, 300), np.float32),
+                                 runtime.BucketLadder.from_seconds(sr=100))
+    assert x.shape == (2, 400) and n == 300
+    mask = runtime.length_mask(torch.tensor([2, 5]), 5)
+    assert runtime.masked_mean(torch.ones(2, 5), mask, axis=1).tolist() == [1.0, 1.0]
+    assert runtime.param_count({"w": np.zeros((3, 4))}) == 12
+    # one conversion by each reader: a reference dict, a graph's bytes
+    args = dict(out_channels=8, in_channels=16, num_blocks=2, upsampling_depth=2,
+                enc_kernel_size=2)
+    sd = port_rules.convert_tdanet(reference_layout.reference_state_dict("TDANet", args))
+    runtime.get_model_cls("TDANet")(**args).load_state_dict(sd, strict=True)
+    graph = onnx_io.load_onnx(onnx_io.save_onnx(
+        reference_layout.sigmos_graph(np.random.default_rng(0), ch=8)))
+    from targetdiarization_tpu_torch.train.mos import SigMOSNet
+    net = SigMOSNet(ch=8)
+    assert set(onnx_io.onnx_to_state_dict(graph, net)) == set(net.state_dict())
+    # chip_smoke.py's port_rules phase at small sizes, the CPU's plain
+    # versions counted as the card's wrappers count launches
+    for mod, attr, wrapper in ((separation, "ffconvm", ffk.ffconvm),
+                               (separation, "flash_gated", flk.flash_gated),
+                               (dwop, "dwconv", dwk.dwconv)):
+        def counted(*a, _f=getattr(mod, attr), _w=wrapper, **k):
+            _w.launches += 1
+            return _f(*a, **k)
+        setattr(mod, attr, counted)
+    models = [("MossFormer2", dict(dim=64, enc_channels=64, num_blocks=2, group_size=64,
+                                   qk_dim=32, fsmn_inner=64)),
+              ("Apollo", dict(sr=16000, win_ms=20, feature_dim=16, layer=1)),
+              ("ConvTasNet", dict(enc_channels=32, bottleneck=16, hidden=32, n_blocks=3,
+                                  n_repeats=1))]
+    totals = chip_smoke.check_port_rules(
+        device="cpu", models=models, seconds=0.5,
+        mos_nets=(("DNSMOSNet", 3, 8, (1, 100, 120)), ("DNSMOSNet", 1, 8, (1, 100, 120)),
+                  ("SigMOSNet", 7, 8, (1, 3, 40, 481))))
+    assert totals == {"ffconvm": 10, "flash_gated": 2, "flash_group": 0, "dwconv": 10}, totals
+""")
+
+
+def test_reference_checkpoint_readers_run_without_jax_or_optax():
+    """The runtime package, `runtime/port_rules.py`, `runtime/onnx_io.py`
+    and `tools/reference_layout.py` import and convert (a TDANet reference
+    dict, a SigMOS graph), and chip_smoke.py's port_rules phase runs at
+    small sizes, with jax, flax, optax, sklearn and the JAX package
+    blocked."""
+    proc = _run_blocked(_BLOCKED_PORT_RULES, extra=("aiohttp", "optax"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 

@@ -629,3 +629,56 @@ def test_tensor_core_kernels_share_the_hopper_header():
             text = f.read()
         assert '#include "hopper.cuh"' in text
         assert "uint64_t gmma_desc(" not in text and "void split_bf16(" not in text
+
+
+def test_build_compiles_each_source_in_parallel_then_links(monkeypatch, tmp_path):
+    """`_build.build` with a stand-in nvcc (this machine has none): one
+    compile a source, each running while all three have started, then one
+    link of their objects; the ptxas reports joined in source order and no
+    object left; a failing compile raises with its output and leaves no
+    library."""
+    import sys
+
+    calls, started = tmp_path / "calls", tmp_path / "started"
+    started.mkdir()
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"""#!{sys.executable}
+import os, sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({str(calls)!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if args[-1].endswith("broken.cu"):
+    sys.exit("error in broken.cu")
+if "-c" in args:
+    open(os.path.join({str(started)!r}, os.path.basename(args[-1])), "w").close()
+    time.sleep(1)
+    with open(out, "w") as f:
+        f.write(str(len(os.listdir({str(started)!r}))))
+    sys.stderr.write("ptxas report of " + os.path.basename(args[-1]) + "\\n")
+else:
+    with open(out, "w") as f:
+        f.write(" ".join(open(a).read() for a in args if a.endswith(".o")))
+""")
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (csrc / name).write_text("// source\n")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    path = str(tmp_path / "build" / "lib.so")
+    _build.build(path)
+    lines = calls.read_text().splitlines()
+    compiles, links = [c for c in lines if " -c " in c], [c for c in lines if " -c " not in c]
+    assert len(compiles) == 3 and len(links) == 1
+    assert "-shared" in links[0].split() and all("-shared" not in c.split() for c in compiles)
+    assert open(path).read().split() == ["3", "3", "3"]  # all three had started
+    assert open(_build.ptxas_log(path)).read() == "".join(
+        f"ptxas report of {n}\n" for n in ("a.cu", "b.cu", "c.cu"))
+    assert sorted(os.listdir(tmp_path / "build")) == ["lib.ptxas.txt", "lib.so"]
+    (csrc / "broken.cu").write_text("// source\n")
+    with pytest.raises(RuntimeError, match="error in broken.cu"):
+        _build.build(str(tmp_path / "build" / "lib2.so"))
+    assert sorted(os.listdir(tmp_path / "build")) == ["lib.ptxas.txt", "lib.so"]
