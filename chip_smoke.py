@@ -47,7 +47,10 @@ ConvTasNet from seeded state dicts in the reference (look2hear) layout
 through `runtime/port_rules.py`, one float32 forward each with the kernels
 and under the plain versions, and the DNSMOS and SigMOS nets from
 synthetic ONNX graphs through `runtime/onnx_io.py` against its numpy
-evaluator.
+evaluator, and drive data parallelism (`mesh`): `parallel/mesh.py`'s mesh
+(two slots of the one card, or every card) under `SeparationTrainer`,
+`SeparationEngine`, the fused analyze and the fused ASR, each against one
+slot (`tools/dryrun_multichip.py`).
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -90,7 +93,9 @@ the plain recipes (each run's ms a step, peak GB, losses, launches, the
 reloaded checkpoints' agreement, `phase_s`), and the reference checkpoints
 (each conversion's host seconds, each forward's ms with the kernels and
 plain, launches against the model's prediction, SI-SDR of the kernels
-against plain; each MOS net's ms and error against `evaluate_onnx`).
+against plain; each MOS net's ms and error against `evaluate_onnx`), and
+the mesh (the visible cards and the slots; each check's sharded and
+single-slot ms, its gaps and its launches against the prediction).
 The line before the last
 holds every kernel's launches, error and times; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -3124,7 +3129,7 @@ def timed_step(trainer, batch: dict, device: str) -> dict:
     from targetdiarization_tpu_torch.train.optim import apply_updates
 
     params = list(trainer.params.values())
-    b = trainer._place(batch)
+    (b,) = trainer._place(batch)  # one slot
     sync(device)
     t0 = time.perf_counter()
     loss = trainer._loss(trainer.model(b["mix"]), b["src"])
@@ -3951,6 +3956,48 @@ def check_port_rules(device: str = "cuda", models: list | None = None, seconds: 
     return totals
 
 
+# ---------------- data parallelism: the mesh ----------------
+
+
+def check_mesh(mesh=None, separator: str = CHECKPOINT) -> dict:
+    """The mesh phase: tools/dryrun_multichip.py's four checks in float32
+    with no TF32 on `mesh`, by default two slots of cuda:0 when one card is
+    visible (the sharding, the row padding, the gradient reduction and the
+    replicas' kernel operands, but no copies between cards) and every card
+    (`make_mesh()`) when more are: `SeparationTrainer` on `separator` over
+    the mesh (4 rows of 1 s a slot, 2 steps) against one slot on the whole
+    batch (loss and grad norm within 1e-3, updates at cosine 0.9999),
+    `SeparationEngine(mesh=).separate_batch` on 5 clips against one slot
+    (relative 1e-5), the fused analyze on 4 rows at 32000 against the
+    per-row analyze, the fused ASR on 4 tracks against the unsharded call
+    (ids equal). Each check holds its sharded run's launches to the
+    model's forwards on every shard (120 FFConvM, 24 gated FLASH and 48
+    dwconv a 512/24 forward, 24 dx a step) and raises on a departure.
+    Returns the sharded runs' launches."""
+    import torch
+
+    from targetdiarization_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from targetdiarization_tpu_torch.tools import dryrun_multichip as dry
+
+    t0 = time.time()
+    count = torch.cuda.device_count()
+    if mesh is None:
+        mesh = Mesh(["cuda:0", "cuda:0"]) if count == 1 else make_mesh()
+    cards = len(set(mesh))
+    emit("mesh_setup", visible_cards=count, slots=[str(d) for d in mesh],
+         copies_between_cards=cards > 1,
+         note=("two slots on one card: copies between cards not exercised" if cards == 1
+               else f"{cards} cards: gradients reduced by torch.cuda.comm"))
+    results = dry.run(mesh, separator=separator, emit=lambda r: emit("mesh", **r))
+    mesh.close()
+    totals = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0, "dwconv": 0, "dwconv_dx": 0}
+    for r in results:
+        for k, v in r["launches"].items():
+            totals[k] += v
+    emit("mesh_phase", phase_s=time.time() - t0, launches=totals)
+    return totals
+
+
 def kernel_line(rows: dict, path_launches: dict) -> dict:
     """One entry per kernel, in the type the main path calls it in: the
     bf16 engine's promoted float32 stream, so ffconvm on float32
@@ -4062,6 +4109,7 @@ def main() -> None:
     path_launches["recipes"] = check_recipes()
     path_launches["recipes_plain"] = check_recipes_plain()
     path_launches["port_rules"] = check_port_rules()
+    path_launches["mesh"] = check_mesh()
     print(json.dumps(kernel_line(rows, path_launches)), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

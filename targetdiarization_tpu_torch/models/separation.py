@@ -24,6 +24,7 @@ from ..ops.kernels.ffconvm import TAPS, ffconvm, prepare_ffconvm, scale_norm
 from ..ops.kernels.flash import flash_gated
 from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample_poly_np
+from ..parallel.mesh import pjit_forward, replicated
 from ..runtime import microbatch
 from ..runtime.buckets import BucketLadder
 from ..runtime.precision import promote_after, resolve_compute_dtype
@@ -383,19 +384,29 @@ class SeparationEngine:
     bottleneck, before the float32 position table) compute in it, and
     every later module in float32 from weights rounded to it
     (`promote_after`), as the JAX model's types do. The estimate is
-    rounded to the compute type and returned in float32."""
+    rounded to the compute type and returned in float32.
+
+    With a `mesh` (`parallel/mesh.py`) the model sits on slot 0, whose
+    device it takes, and a replica on every other slot; each forward's
+    rows, padded to a multiple of the mesh size with rows of length 1, run
+    as equal shards on the slots (`pjit_forward`)."""
 
     WINDOW = 160_000
 
     def __init__(self, model: nn.Module, device: str | torch.device = "cuda",
-                 compute_dtype: str | None = None, window: int | None = None):
+                 compute_dtype: str | None = None, window: int | None = None, mesh=None):
         from .zoo import pad_safe
 
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh[0]
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         self.model = promote_after(model.to(self.device), model.reduced_modules(),
                                    self.compute_dtype).eval()
         prepare_kernels(self.model)
+        self.mesh = mesh
+        self.mesh_size = 1 if mesh is None else len(mesh)
+        if mesh is not None:
+            self.replicas = replicated(mesh, self.model)
+            self._sharded = pjit_forward(self._model_forward, mesh)
         self.sample_rate = model.sample_rate
         self.num_spks = model.num_spks
         self.window = window or self.WINDOW
@@ -412,20 +423,30 @@ class SeparationEngine:
 
     @classmethod
     def from_pretrained(cls, path: str, device: str | torch.device = "cuda",
-                        compute_dtype: str | None = None) -> "SeparationEngine":
+                        compute_dtype: str | None = None, mesh=None) -> "SeparationEngine":
         """The engine of the checkpoint under `path`, whatever separator its
         `model_name` names."""
         from ..runtime.registry import from_pretrained
 
-        return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype)
+        return cls(from_pretrained(path), device=device, compute_dtype=compute_dtype, mesh=mesh)
+
+    def _model_forward(self, model: nn.Module, wav: torch.Tensor, lens: torch.Tensor):
+        """One replica's forward of float32 rows on its device."""
+        return model(wav.to(self.compute_dtype), lens).to(self.compute_dtype)
 
     def _forward(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-        """(rows, bucket) float32 audio -> (rows, spk, bucket) float32."""
+        """(rows, bucket) float32 audio -> (rows, spk, bucket) float32. On a
+        mesh the rows are padded to a multiple of its size first."""
+        n = batch.shape[0]
+        batch = np.ascontiguousarray(batch, np.float32)
+        lengths = np.asarray(lengths, np.int64)
         with torch.inference_mode():
-            wav = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(
-                self.device).to(self.compute_dtype)
-            lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
-            return self.model(wav, lens).to(self.compute_dtype).float().cpu().numpy()
+            if self.mesh is None:
+                est = self._model_forward(self.model, torch.from_numpy(batch).to(self.device),
+                                          torch.from_numpy(lengths).to(self.device))
+            else:
+                est = self._sharded(self.replicas, *self._pad_rows(batch, lengths, n))
+            return est.float().cpu().numpy()[:n]
 
     def _dispatch(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         """(rows, bucket) -> (rows, spk, bucket): through the batcher, where
@@ -438,7 +459,8 @@ class SeparationEngine:
     def _run_mb(self, key: int, items: list) -> list:
         """The batcher's callback: consecutive items packed into groups of
         at most the top rung's rows, each group padded to a rung with rows
-        of length 1 (always a rung, so a forward's row count is one of
+        of length 1 (always a rung, which `_pad_rows` rounds up to a
+        multiple of the mesh size, so a forward's row count is one of
         five), one forward a group; each item gets its own rows back."""
         top = self.ROW_LADDER[-1]
         groups: list = [[]]
@@ -466,11 +488,12 @@ class SeparationEngine:
                 r += b.shape[0]
         return out
 
-    @staticmethod
-    def _pad_rows(batch: np.ndarray, lengths: np.ndarray, rows: int):
-        """(batch, lengths) padded to `rows` rows of zeros with length 1 (the
-        masks leave a row's result to its own samples)."""
+    def _pad_rows(self, batch: np.ndarray, lengths: np.ndarray, rows: int):
+        """(batch, lengths) padded to `rows` rows, rounded up to a multiple
+        of the mesh size, of zeros with length 1 (the masks leave a row's
+        result to its own samples)."""
         n = batch.shape[0]
+        rows += (-rows) % self.mesh_size
         if rows <= n:
             return batch, lengths
         batch = np.pad(batch, ((0, rows - n),) + ((0, 0),) * (batch.ndim - 1))

@@ -10,6 +10,18 @@ recompute their plain versions (`grads_by_recompute`), dwconv launches its
 kernel again for dx.
 """
 
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Adds one to `wrapper.<counter>` under a lock. The slots of a mesh
+    (`parallel/mesh.py`) launch from several threads at once, and `+=` on
+    an attribute is a read and a write that two threads can interleave."""
+    with _COUNT_LOCK:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
 
 def prepare_kernels(model) -> None:
     """Has every module of `model` that owns a kernel's weights make the

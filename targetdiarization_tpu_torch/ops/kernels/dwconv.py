@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import check_fresh
+from . import check_fresh, count_launch
 from ._build import declare
 
 # mirrors csrc/dwconv.cu: a block stages at most ROWS output rows (8 d
@@ -196,7 +196,7 @@ def _forward(x, kernel, dilation: int, pad_l: int, pad_r: int, taps: Taps | None
         raise ValueError("dwconv on the card takes taps made once by prepare_taps "
                          "(engines make them with ops.kernels.prepare_kernels)")
     out = _launch(x, taps, dilation, pad_l, pad_r)
-    dwconv.launches += 1
+    count_launch(dwconv)
     return out
 
 
@@ -224,7 +224,7 @@ def _dx(g, w, dilation: int, pad_l: int, pad_r: int, t: int):
     if not g.is_cuda:
         return dwconv_plain(g, flipped, dilation, lp, rp)
     out = _launch(g.contiguous(), prepare_taps(flipped), dilation, lp, rp)
-    dwconv.backward_launches += 1
+    count_launch(dwconv, "backward_launches")
     return out
 
 

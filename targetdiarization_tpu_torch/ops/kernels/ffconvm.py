@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import check_fresh, grads_by_recompute
+from . import check_fresh, count_launch, grads_by_recompute
 from ._build import declare
 
 TAPS = 17
@@ -171,7 +171,7 @@ def _forward(x, na, nb, weight, bias, dwk, norm, prepared):
         prepared.bias.data_ptr(), prepared.dwk.data_ptr(), stats.data_ptr(), out.data_ptr(),
         b, t, cin, cout, int(prepared.layernorm), EPS, cin ** -0.5 * cin ** -0.5,
         int(x.dtype == torch.bfloat16))
-    ffconvm.launches += 1
+    count_launch(ffconvm)
     return out
 
 

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from . import grads_by_recompute
+from . import count_launch, grads_by_recompute
 from ._build import declare
 
 
@@ -105,7 +105,7 @@ def _gated_forward(q, k, v, u, mask, lq, lin_kv, lin_ku):
     _fn(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
         mask.data_ptr(), lq.data_ptr(), lin_kv.data_ptr(), lin_ku.data_ptr(), out.data_ptr(),
         b, n_groups, g, d, e, int(q.dtype == torch.bfloat16))
-    flash_gated.launches += 1
+    count_launch(flash_gated)
     return out
 
 
@@ -122,7 +122,7 @@ def _group_forward(q, k, v, u, mask):
     _group_fn(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(),
               mask.data_ptr(), out_v.data_ptr(), out_u.data_ptr(), b, n_groups, g, d, e,
               int(q.dtype == torch.bfloat16))
-    flash_group_attention.launches += 1
+    count_launch(flash_group_attention)
     return out_v, out_u
 
 

@@ -35,7 +35,10 @@ vocabularies are the same.
 `StreamChunkAnalyzer.analyze_chunk`: the streaming flush decision's
 speech probabilities and speaker-change cosine in one pass (below).
 
-The sharded analyze over a mesh of chips is not ported.
+Over a mesh of cards (`parallel/mesh.py`): `FusedFrontend.build_analyze_sharded`
+runs the analyze of N requests at one rung with the rows split over the
+slots, and `FusedASR.build_sharded` the speakers' tracks; the engines are
+replicated on every slot, and no collective is needed.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..models import features
 from ..models.denoise import denoise_chain_16k, spectral_gate
 from ..ops.loudness import k_weight, lufs
 from ..ops.stft import frame_signal
+from ..parallel.mesh import pjit_forward, replicated
 from ..runtime.buckets import BucketLadder, pad_to
 from ..runtime.precision import exact_float32, quantize_i16
 from ..runtime.trace import trace
@@ -143,6 +147,33 @@ class FusedFrontend:
             full = torch.full((wins.shape[0],), _WIN_F, device=self.device)
             out["win_embs"] = self.spk.embed_feats(wins, full)
         return out
+
+    def build_analyze_sharded(self, bucket: int, mesh):
+        """The analyze of N requests at rung `bucket` with the rows split
+        over the slots of `mesh`: the denoiser, VAD, segmentation and
+        speaker engines replicated on every slot (`replicated`), each slot
+        running `_analyze_device` on its rows in turn. Returns fn(audio_i16
+        (N, bucket) int16, n_valid (N,)) -> dict of the outputs stacked by
+        row on slot 0's device, row i that of `_analyze_device` on row i;
+        N must be a multiple of the mesh size."""
+        engines = [(None,) * len(mesh) if e is None else replicated(mesh, e)
+                   for e in (self.denoiser, self.vad, self.seg, self.spk)]
+        fronts = [FusedFrontend(*slot) for slot in zip(*engines)]
+
+        def rows(front, audio_i16, n_valid):
+            outs = [front._analyze_device(a, int(n), bucket) for a, n in zip(audio_i16, n_valid)]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+        run = pjit_forward(rows, mesh)
+
+        def fn(audio_i16, n_valid):
+            if audio_i16.shape[-1] != bucket:
+                raise ValueError(f"built for rows of {bucket} samples, called with "
+                                 f"{tuple(audio_i16.shape)}")
+            with torch.inference_mode():
+                return run(fronts, audio_i16, n_valid)
+
+        return fn
 
     def analyze(self, audio: np.ndarray, sr: int = 16000) -> dict:
         """{"audio": the denoised float32 track, "audio_dev_i16": the same
@@ -457,6 +488,31 @@ class FusedASR:
             plogits = punc.model(ids, tok_mask.to(punc.compute_dtype)).float()
             res["punc_cls"] = torch.argmax(plogits, dim=-1)
         return res
+
+    def build_sharded(self, bucket: int, n_spk: int, max_segs: int, mesh):
+        """`_device` with the speakers' tracks split over the slots of
+        `mesh`: the ASR and punctuation engines replicated on every slot
+        (`replicated`), the int16 audio copied to each, the ranges and LFR
+        lengths cut by rows. Returns fn(audio_i16 (bucket,), ranges (n_spk,
+        max_segs, 2) float32 sample indices, n_lfr (n_spk,)) -> `_device`'s
+        dict stacked by track on slot 0's device; n_spk must be a multiple
+        of the mesh size."""
+        asrs = replicated(mesh, self.asr)
+        puncs = (None,) * len(mesh) if self.punc is None else replicated(mesh, self.punc)
+        fused = [FusedASR(a, p) for a, p in zip(asrs, puncs)]
+        run = pjit_forward(lambda slot, ranges, n_lfr: slot[0]._device(slot[1], ranges, n_lfr),
+                           mesh)
+
+        def fn(audio_i16, ranges, n_lfr):
+            if tuple(ranges.shape) != (n_spk, max_segs, 2) or len(audio_i16) != bucket:
+                raise ValueError(f"built for audio ({bucket},) and ranges ({n_spk}, {max_segs}, "
+                                 f"2), called with {tuple(audio_i16.shape)} and "
+                                 f"{tuple(ranges.shape)}")
+            audio = torch.as_tensor(audio_i16)
+            with torch.inference_mode(), exact_float32():
+                return run([(f, audio.to(f.device)) for f in fused], ranges, n_lfr)
+
+        return fn
 
     def transcribe_masked(self, audio_dev_i16: torch.Tensor, n_samples: int,
                           spk_ranges: list) -> list:

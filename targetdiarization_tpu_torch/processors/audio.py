@@ -9,7 +9,9 @@ constructor raises; there is no random-weight stand-in. With no separator
 configured, `separate_speaker` returns the input twice; with no denoiser,
 `denoise_vocal` runs the spectral gate; with no restorer, `restore_audio`
 returns its input; with no enhancer, `enhance_audio` restores, as the
-reference does. Loudness is metered on the host. The tensor work (resampling,
+reference does. A `mesh` (`parallel/mesh.py`) goes to the separation
+engine, whose forwards then run row-sharded over its slots. Loudness is
+metered on the host. The tensor work (resampling,
 compression, mixing, the STFTs of `eq_match` and `audio_stretch`) runs on
 the processor's device; the phase vocoder's loop and overlap-add stay on
 the host in float32, as in the JAX package. Audio is read from PCM WAV
@@ -45,7 +47,7 @@ class AudioProcessor:
     def __init__(self, separation_model: str = "", denoise_model: str = "",
                  restoration_model: str = "", enhancement_model: str = "", quality: int = 2,
                  device: str | torch.device = "cuda", compute_dtype: str | None = None,
-                 verbose_log: bool = False):
+                 verbose_log: bool = False, mesh=None):
         self.verbose_log = verbose_log
         self.quality = quality
         self.device = torch.device(device)
@@ -57,7 +59,7 @@ class AudioProcessor:
         if separation_model:
             self.separator = SeparationEngine.from_pretrained(
                 _checkpoint(separation_model, "separation"), device=device,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, mesh=mesh)
         if denoise_model:
             self.denoiser = DenoiseEngine.from_pretrained(
                 _checkpoint(denoise_model, "denoise"), hop=QUALITY_HOP.get(quality, 1024),

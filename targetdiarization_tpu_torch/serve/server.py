@@ -116,8 +116,15 @@ def build_model(config=None, device: str | None = None):
     name a CAM++ one). The engines
     compute in the card's types (bf16 on the card, float32 on the CPU;
     TD_COMPUTE_DTYPE overrides), the enhancer in float32 as the JAX one
-    does; one card needs no mesh."""
+    does. When `device` is the cards ("cuda" or "cuda:0") and more than
+    one is visible, the separator serves on a mesh of all of them
+    (`parallel/mesh.py`: the model replicated, each forward's rows split
+    over the cards) unless TD_SERVE_MESH is "0"; on one card there is no
+    mesh."""
+    import torch
+
     from ..models.diarization import SegmentationEngine
+    from ..parallel.mesh import make_mesh
     from ..pipeline.streaming import TargetDiarizationStream
     from ..pipeline.target_asr import TargetASR
     from ..processors.asr import ASRProcessor
@@ -139,10 +146,16 @@ def build_model(config=None, device: str | None = None):
         if not getattr(cfg, name) and os.path.exists(path):
             setattr(cfg, name, path)
             logger.info(f"using bootstrap checkpoint for {name}: {path}")
+    mesh = None
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index in (None, 0) and torch.cuda.device_count() > 1 \
+            and os.environ.get("TD_SERVE_MESH", "1") != "0":
+        mesh = make_mesh()
+        logger.info(f"serving with a {mesh.size}-card data mesh")
     ap = AudioProcessor(separation_model=cfg.separation_model, denoise_model=cfg.denoise_model,
                         restoration_model=cfg.restoration_model,
                         enhancement_model=cfg.enhancement_model, quality=cfg.quality,
-                        device=device, verbose_log=cfg.verbose_log)
+                        device=device, verbose_log=cfg.verbose_log, mesh=mesh)
     asrp = ASRProcessor(vad_model=cfg.vad_model, asr_model=cfg.asr_model,
                         asr_engine=cfg.asr_engine, punc_model=cfg.punc_model,
                         emotion_model=cfg.emotion_model, verbose_log=cfg.verbose_log,

@@ -3,7 +3,7 @@
 Counterpart of targetdiarization_tpu/train (the reference's look2hear
 training system: the Lightning module, PIT and MixIT losses, the
 dynamic-mixing data module, the optimizer and scheduler factories), on
-torch and one card.
+torch, over one card or a mesh of them (`parallel/mesh.py`).
 """
 
 from .losses import (  # noqa: F401

@@ -100,7 +100,10 @@ class DynamicMixDataset:
         return mix.astype(np.float32), np.stack([a, b]).astype(np.float32)
 
     def batches(self, batch_size: int, steps: int):
-        """Yield `steps` fixed-shape batches {'mix': (B, T), 'src': (B, 2, T)}."""
+        """Yield `steps` fixed-shape batches {'mix': (B, T), 'src': (B, 2, T)}.
+        For a trainer over a mesh, `batch_size` is a multiple of the mesh
+        size: the rows split into equal shards, and `SeparationTrainer`
+        raises on a batch the mesh size does not divide."""
         for _ in range(steps):
             mixes, srcs = zip(*(self.sample() for _ in range(batch_size)))
             yield {"mix": np.stack(mixes), "src": np.stack(srcs)}

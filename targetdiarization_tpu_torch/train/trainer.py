@@ -1,4 +1,4 @@
-"""Separation trainer on one card.
+"""Data-parallel separation trainer over a mesh of cards.
 
 Counterpart of targetdiarization_tpu/train/trainer.py (the reference's
 Lightning module rebuilt on optax): train and eval steps with the PIT
@@ -9,11 +9,21 @@ trainer takes `jax.value_and_grad` of the separator under jit over a
 device mesh; here autograd runs through the kernels' Functions
 (`ops/kernels`): FFConvM and gated FLASH launch their kernels forward and
 recompute their plain versions backward, dwconv launches its kernel for
-dx too. One card: `n_devices` above 1 raises.
+dx too.
+
+Over a mesh (`parallel/mesh.py`; `n_devices`, all visible cards by
+default) the model is slot 0 and every other slot holds a replica. A step
+splits the batch into equal row shards; each slot takes its shard's loss
+and gradient in its worker thread; the gradients are averaged onto slot 0
+(the losses are means over rows, so this is the whole batch's gradient,
+as XLA's all-reduce gives it); the optimizer steps there; the parameters
+are copied into every replica. The reported loss is the mean of the
+shards' losses, the gradient norm that of the averaged gradient.
 
 The separator trains in float32, the JAX trainer's type. The kernels'
-operands are made again (`prepare_kernels`) after the model is placed and
-after every optimizer step, since the step changes the weights in place.
+operands are made again (`prepare_kernels`) on every slot after the model
+is placed and after every optimizer step, since the step changes the
+weights in place.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import prepare_kernels
+from ..parallel.mesh import make_mesh, replicated, shard_batch
 from ..runtime.convert import CONVERTERS, flat_params
 from ..runtime.params import restore_pytree, save_pytree, unflatten
 from ..runtime.registry import save_checkpoint
@@ -41,7 +52,7 @@ class TrainConfig:
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
     grad_clip: float = 5.0
-    n_devices: int | None = None  # None = the one card
+    n_devices: int | None = None  # None = every visible card; one slot on the CPU
     checkpoint_dir: str = "checkpoints/separation"
     save_every: int = 1000
     loss: str = "pit_si_sdr"  # or "mixit"
@@ -105,16 +116,17 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> dict:
 class SeparationTrainer:
     """model: a separator module with (B, T) -> (B, S, T) forward (MossFormer2
     or a zoo class). `params`: its state dict (`runtime/convert.py` makes
-    one from a JAX tree), or None for a seeded draw at flax's scales."""
+    one from a JAX tree), or None for a seeded draw at flax's scales. The
+    mesh is `mesh` if given, else `make_mesh(cfg.n_devices, device)`: the
+    first n visible cards (raising when fewer are visible), or n CPU slots
+    on the CPU; the model lives on slot 0."""
 
     def __init__(self, model, params=None, cfg: TrainConfig | None = None, seed: int = 0,
-                 example_seconds: float = 1.0, device: str | torch.device = "cuda"):
+                 example_seconds: float = 1.0, device: str | torch.device = "cuda", mesh=None):
         # example_seconds sized the JAX trainer's init; the modules here know their shapes
         self.cfg = cfg or TrainConfig()
-        if self.cfg.n_devices not in (None, 1):
-            raise ValueError(f"the trainer runs on one card; n_devices={self.cfg.n_devices} "
-                             "has no counterpart (the JAX package's mesh is not ported)")
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(self.cfg.n_devices, device)
+        self.device = self.mesh[0]
         self.step = 0
         if params is None:
             params = init_params(model, seed)
@@ -122,6 +134,7 @@ class SeparationTrainer:
         # no dropout or batch statistics: the JAX trainer's deterministic apply
         self.model = model.to(device=self.device, dtype=torch.float32).eval()
         prepare_kernels(self.model)
+        self.replicas = replicated(self.mesh, self.model)
         self.params = dict(self.model.named_parameters())
         self.opt = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
                                   self.cfg.weight_decay, self.cfg.grad_clip)
@@ -131,37 +144,69 @@ class SeparationTrainer:
 
     @property
     def n_devices(self) -> int:
-        return 1
+        return len(self.mesh)
 
-    def _place(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
-                for k, v in batch.items()}
+    def _place(self, batch: dict) -> list:
+        """`batch` as one shard a slot, each on its slot; raises when the
+        mesh size does not divide the batch."""
+        return shard_batch(self.mesh, {k: np.asarray(v, np.float32) for k, v in batch.items()})
+
+    def _on_slots(self, fn, shards: list) -> list:
+        """[fn(i, shard_i)]: in the caller's thread on one slot, else in the
+        slots' workers."""
+        if len(self.mesh) == 1:
+            return [fn(0, shards[0])]
+        return self.mesh.map(fn, shards)
 
     def _loss(self, est, src):
         if self.cfg.loss == "mixit":
             return mixit_loss(est, src)
         return pit_si_sdr_loss(est, src)
 
-    def loss_and_grads(self, batch: dict) -> tuple[torch.Tensor, list]:
-        """The loss of `batch` and its gradient for every parameter, in
-        `self.params`' order (zeros for a parameter the forward leaves out)."""
-        b = self._place(batch)
-        params = list(self.params.values())
-        loss = self._loss(self.model(b["mix"]), b["src"])
+    def _slot_loss_and_grads(self, i: int, shard: dict) -> tuple[torch.Tensor, list]:
+        model = self.replicas[i]
+        params = list(model.parameters())
+        loss = self._loss(model(shard["mix"]), shard["src"])
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(params, grads)]
 
+    def loss_and_grads(self, batch: dict) -> tuple[torch.Tensor, list]:
+        """The loss of `batch` and its gradient for every parameter, in
+        `self.params`' order (zeros for a parameter the forward leaves out),
+        on slot 0: over several slots the means of the shards' losses and
+        gradients."""
+        out = self._on_slots(self._slot_loss_and_grads, self._place(batch))
+        if len(out) == 1:
+            return out[0]
+        loss = torch.stack([loss.to(self.device) for loss, _ in out]).mean()
+        return loss, self.mesh.reduce_mean([grads for _, grads in out])
+
+    def _sync(self) -> None:
+        """Slot 0's parameters into every replica, then every slot's kernel
+        operands made again."""
+        with torch.no_grad():
+            for replica in self.replicas[1:]:
+                for p, q in zip(replica.parameters(), self.params.values()):
+                    p.copy_(q)
+        for replica in self.replicas:
+            prepare_kernels(replica)
+
     def train_step(self, batch: dict) -> dict:
         """One optimizer step; returns the loss and the unclipped gradient's
         global norm (device tensors)."""
-        loss, grads = self.loss_and_grads(batch)
+        return self.apply_gradients(*self.loss_and_grads(batch))
+
+    def apply_gradients(self, loss: torch.Tensor, grads: list) -> dict:
+        """The optimizer step for `grads` (in `self.params`' order, on slot
+        0), the parameters copied into every replica; returns `loss` and
+        the gradient's global norm."""
         params = list(self.params.values())
         with torch.no_grad():
             updates, self.state["opt"] = self.opt.update(grads, self.state["opt"], params)
             apply_updates(params, updates)
             gnorm = global_norm(grads)
-        prepare_kernels(self.model)
+        self._sync()
         return {"loss": loss, "grad_norm": gnorm}
 
     def fit(self, batches, steps: int | None = None, log_every: int = 10,
@@ -182,11 +227,15 @@ class SeparationTrainer:
         return history
 
     def evaluate(self, batches) -> float:
+        """The mean over `batches` of the PIT SI-SDR loss, each batch's the
+        mean over the slots' shards."""
+        def shard_loss(i, b):
+            return float(pit_si_sdr_loss(self.replicas[i](b["mix"]), b["src"]))
+
         losses = []
         with torch.no_grad():
             for batch in batches:
-                b = self._place(batch)
-                losses.append(float(pit_si_sdr_loss(self.model(b["mix"]), b["src"])))
+                losses.append(float(np.mean(self._on_slots(shard_loss, self._place(batch)))))
         return float(np.mean(losses)) if losses else float("nan")
 
     # ---------------- checkpoint / resume ----------------
@@ -207,7 +256,7 @@ class SeparationTrainer:
             for name, p in self.params.items():
                 p.copy_(restored["params"][name])
         self.state["opt"] = restored["opt"]
-        prepare_kernels(self.model)
+        self._sync()
         with open(os.path.join(path, "trainer.json")) as f:
             self.step = json.load(f)["step"]
         return self.step

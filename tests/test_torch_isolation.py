@@ -14,7 +14,9 @@ the server app; and training (chip_smoke.py's train phase at a small
 size, and the bootstrap recipes, all fourteen), with optax blocked too, and
 `train/mos.py`'s estimators, and the readers of reference checkpoints
 (`runtime/port_rules.py`, `runtime/onnx_io.py`, chip_smoke.py's port_rules
-phase at small sizes).
+phase at small sizes), and data parallelism (`parallel/`, the trainer on a
+mesh, `tools/dryrun_multichip.py` through chip_smoke.py's mesh phase at a
+small size), with optax blocked too.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -574,6 +576,60 @@ def test_reference_checkpoint_readers_run_without_jax_or_optax():
     small sizes, with jax, flax, optax, sklearn and the JAX package
     blocked."""
     proc = _run_blocked(_BLOCKED_PORT_RULES, extra=("aiohttp", "optax"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_MESH = textwrap.dedent("""
+    import tempfile
+    import chip_smoke
+    from targetdiarization_tpu_torch import parallel
+    from targetdiarization_tpu_torch.models import separation
+    from targetdiarization_tpu_torch.ops import dwconv as dwop
+    from targetdiarization_tpu_torch.ops.kernels import count_launch
+    from targetdiarization_tpu_torch.ops.kernels import dwconv as dwk, ffconvm as ffk, flash as flk
+    from targetdiarization_tpu_torch.runtime.registry import save_checkpoint
+    from targetdiarization_tpu_torch.train import SeparationTrainer, TrainConfig
+    from targetdiarization_tpu_torch.train.trainer import init_params
+    torch.cuda.synchronize = lambda *a, **k: None
+    # the CPU's plain versions, counted as the card's wrappers count
+    # launches (from the slots' threads at once)
+    for mod, attr, wrapper in ((separation, "ffconvm", ffk.ffconvm),
+                               (separation, "flash_gated", flk.flash_gated),
+                               (dwop, "dwconv", dwk.dwconv)):
+        def counted(*a, _f=getattr(mod, attr), _w=wrapper, **k):
+            count_launch(_w)
+            return _f(*a, **k)
+        setattr(mod, attr, counted)
+    dx = dwk._dx
+    def dx_counted(g, w, *a):
+        if w.shape[1] == 1:  # the card's dx launches at m = 1
+            count_launch(dwk.dwconv, "backward_launches")
+        return dx(g, w, *a)
+    dwk._dx = dx_counted
+    args = dict(dim=32, enc_channels=32, num_blocks=2, group_size=32, qk_dim=16, fsmn_inner=16)
+    model = separation.MossFormer2(**args)
+    model.load_state_dict(init_params(model, 0))
+    root = tempfile.mkdtemp()
+    save_checkpoint(root, model, "MossFormer2", args)
+    # the mesh phase on two CPU slots: the four checks of
+    # tools/dryrun_multichip.py with the small separator and the shipped
+    # den-, vad-, seg-, spk-, asr- and punc-bootstrap
+    totals = chip_smoke.check_mesh(mesh=parallel.Mesh(["cpu", "cpu"]), separator=root)
+    assert totals == {"ffconvm": 60, "flash_gated": 12, "flash_group": 0, "dwconv": 64,
+                      "dwconv_dx": 8}, totals
+    trainer = SeparationTrainer(separation.MossFormer2(**args), cfg=TrainConfig(
+        save_every=0, n_devices=2), device="cpu")
+    assert trainer.n_devices == 2
+""")
+
+
+def test_mesh_runs_without_jax_or_optax():
+    """`parallel/` and chip_smoke.py's mesh phase on two CPU slots at a
+    small size (`tools/dryrun_multichip.py`: the trainer on the mesh
+    against one slot, the separation engine, the sharded analyze and ASR,
+    each sharded run's launches as predicted), with optax blocked too."""
+    proc = _run_blocked(_BLOCKED_MESH, extra=("aiohttp", "optax"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 

@@ -481,5 +481,17 @@ def test_init_draws_embeddings_as_flax():
 
 
 def test_more_than_one_device_raises():
-    with pytest.raises(ValueError, match="one card"):
-        _port_trainer(n_devices=2)
+    """More than one device: n_devices 2 on the CPU trains on two slots (one
+    step, the replicas in step with slot 0), and asking for more cards
+    than are visible raises, naming both counts."""
+    torch.set_num_threads(2)
+    trainer = _port_trainer(n_devices=2)
+    assert trainer.n_devices == 2 and len(trainer.replicas) == 2
+    metrics = trainer.train_step(_heldout(4))
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    for p, q in zip(trainer.replicas[1].parameters(), trainer.params.values()):
+        assert torch.equal(p, q)
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"{visible + 1} cards .* {visible} are visible"):
+        SeparationTrainer(MossFormer2(**SMALL), cfg=TrainConfig(n_devices=visible + 1),
+                          device="cuda")
