@@ -50,15 +50,23 @@ synthetic ONNX graphs through `runtime/onnx_io.py` against its numpy
 evaluator, and drive data parallelism (`mesh`): `parallel/mesh.py`'s mesh
 (two slots of the one card, or every card) under `SeparationTrainer`,
 `SeparationEngine`, the fused analyze and the fused ASR, each against one
-slot (`tools/dryrun_multichip.py`).
+slot (`tools/dryrun_multichip.py`). It also builds the host library
+(`utils/native.py` from `csrc/host/tdaudio.cpp`, with g++) and holds its
+BS.1770 meter and converters against their numpy versions (`host_library`),
+and profiles through `runtime/trace.py::device_profile`, reading each
+profile back from the Chrome trace it writes; `infer` (a)'s trace must hold
+each FFConvM, gated FLASH and dwconv launch that the counters count and
+the `fused/separate` span (`device_profile`).
 
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
 Each phase prints one JSON line with `elapsed_s` since the start: the build,
-each kernel's registers and spills from ptxas and, by `cuobjdump`, the
-tensor-core instructions of the built FFConvM and FLASH kernels; each kernel
+the host library's build seconds and its meter's and the numpy meter's ms
+on 1 s and 46 s of speech, each kernel's registers and spills from ptxas
+and, by `cuobjdump`, the tensor-core instructions of the built FFConvM and
+FLASH kernels; each kernel
 against its plain version at the main path's shapes and types and at the
 recipes' separators' (FFConvM and gated FLASH at 256/12 and 64/4), with its
 host-inclusive time (`ms`), its device time from 20 launches replayed in
@@ -770,56 +778,155 @@ def run_clips(ap, clips: dict, label: str) -> dict:
     return outs
 
 
-def profile_call(fn, label: str, top: int = 10, spans: bool = False) -> None:
-    """A diagnostic line: one call under torch.profiler, its device time by
-    kernel name (the `top` largest), the sum of all kernel time, and that
-    sum's share of the call's host-clock time (the rest is the device
-    idle, waiting on the host). Wall time here includes the profiler's own
-    overhead. Where the profiler records no device time, the line says so.
-    The `runtime/trace.py` spans are user annotations, recorded as a range
-    on the host and one on the device, which is no kernel; with `spans`,
-    each one's calls, host ms and range on the device's timeline."""
+def profile_call(fn, label: str, top: int = 10, spans: bool = False) -> dict:
+    """A diagnostic line: one call under `runtime/trace.py::device_profile`,
+    read back from the Chrome trace JSON it writes: the call's device time
+    by kernel name (the `top` largest; kernels, copies and sets), the sum of
+    all device time, and that sum's share of the call's host-clock time
+    (the rest is the device idle, waiting on the host). Wall time here
+    includes the profiler's own overhead; `export_s` is the trace's export
+    and reading. Where the trace holds no device time, the line says so.
+    The `runtime/trace.py` spans are ranges on the host (`user_annotation`)
+    and on the device's timeline (`gpu_user_annotation`); with `spans`, each
+    one's calls, host ms and device range. Returns the trace's device
+    events and host ranges, each counted by name."""
+    import glob
+    import tempfile
+    from collections import Counter
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from targetdiarization_tpu_torch.runtime.trace import device_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as log_dir:
+        with device_profile(log_dir):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.key_averages()
-    annotations = {ev.key for ev in events if ev.is_user_annotation}
-    rows = []
-    for ev in events:  # device-side events only (kernels, copies)
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
-            continue
-        if ev.key in annotations:
-            raise AssertionError(f"{label}: the span {ev.key!r} is counted as a kernel")
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+        (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    export_s = time.perf_counter() - t
+    device_ms, device_n, ranges = Counter(), Counter(), Counter()
     by_span = {}
     for ev in events:
-        if not (spans and ev.is_user_annotation):
-            continue
-        row = by_span.setdefault(ev.key, {"calls": ev.count})
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        cat, name, ms = ev.get("cat"), ev["name"], ev.get("dur", 0) / 1e3
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device_ms[name] += ms
+            device_n[name] += 1
+        elif cat == "user_annotation":
+            ranges[name] += 1
+            if spans:
+                row = by_span.setdefault(name, {"calls": 0, "host_ms": 0.0})
+                row["calls"] += 1
+                row["host_ms"] += ms
+        elif cat == "gpu_user_annotation" and spans:
             # the range on the device's timeline, first kernel to last
-            dev_us = getattr(ev, "device_time_total", None)
-            row["device_span_ms"] = (dev_us if dev_us is not None
-                                     else getattr(ev, "cuda_time_total", 0)) / 1e3
-        else:
-            row["host_ms"] = ev.cpu_time_total / 1e3
+            row = by_span.setdefault(name, {"calls": 0, "host_ms": 0.0})
+            row["device_span_ms"] = row.get("device_span_ms", 0.0) + ms
+    if set(device_n) & set(ranges):
+        raise AssertionError(f"{label}: the spans {sorted(set(device_n) & set(ranges))} "
+                             "are counted as device events")
+    rows = sorted(((ms, device_n[name], name) for name, ms in device_ms.items() if ms > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows)
     emit("profile", path=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms if wall_ms else None,
          top=[{"ms": ms, "count": n, "name": name[:90]} for ms, n, name in rows[:top]],
-         **({"spans": by_span} if spans else {}),
+         **({"spans": by_span} if spans else {}), export_s=export_s,
          note=None if rows else "the profiler recorded no device time")
+    return {"device": device_n, "ranges": ranges}
+
+
+def trace_launches(device: dict) -> dict:
+    """Launches of the port's kernels among a trace's device events, by the
+    kernels' names (demangled or not): ffconvm_kernel, flash_kernel with
+    the gated template argument true (gated FLASH) or false (the
+    two-output form), dwconv_kernel. FFConvM's row_stats_kernel, which
+    each FFConvM launch also runs, is not counted."""
+    import re
+
+    out = {"ffconvm": 0, "flash_gated": 0, "flash_group": 0, "dwconv": 0}
+    for name, n in device.items():
+        if "ffconvm_kernel" in name:
+            out["ffconvm"] += n
+        elif "dwconv_kernel" in name:
+            out["dwconv"] += n
+        elif "flash_kernel" in name:
+            gated = re.search(r"flash_kernel<[^,]+,\s*(true|false)", name) \
+                or re.search(r"flash_kernelI\w+?Lb([01])E", name)
+            if gated is None:
+                raise AssertionError(f"a FLASH kernel of unknown form in the trace: {name}")
+            out["flash_gated" if gated.group(1) in ("true", "1") else "flash_group"] += n
+    return out
+
+
+# ---------------- the host library: utils/native.py ----------------
+
+METER_LU_TOL = 1e-9  # the C++ meter against the numpy one (tests/test_torch_native.py)
+
+
+def host_ms(fn, iters: int) -> float:
+    """Median host milliseconds of `iters` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def check_host() -> dict:
+    """The port's host library (`csrc/host/tdaudio.cpp`, built with g++ at
+    first use): its build seconds, the C++ BS.1770 meter's and the numpy
+    meter's median host ms on 1 s and 46 s of seeded speech (the
+    conversation of `check_frontend`), which must agree within
+    METER_LU_TOL, and the PCM converters, `resample_linear` and the ring
+    against their numpy versions, bit for bit."""
+    from targetdiarization_tpu_torch.ops.loudness import integrated_loudness
+    from targetdiarization_tpu_torch.utils import native
+
+    if native.disabled():
+        raise AssertionError("TD_DISABLE_NATIVE=1: the host library would not run")
+    path = native.library_path()
+    built = not os.path.exists(path)
+    t = time.perf_counter()
+    native.load_library()
+    load_s = time.perf_counter() - t
+    speech = conversation(46.0, seed=8)
+    meters = {}
+    for name, x in (("1 s", speech[:SR]), ("46 s", speech)):
+        lib, plain = native.integrated_loudness_native(x, SR), integrated_loudness(x, SR)
+        if not (np.isfinite(lib) and abs(lib - plain) <= METER_LU_TOL):
+            raise AssertionError(f"host meter on {name}: C++ {lib} LUFS, numpy {plain} LUFS")
+        iters = 50 if name == "1 s" else 10
+        meters[name] = {"lufs": lib, "plain_lufs": plain, "diff_lu": lib - plain,
+                        "ms": host_ms(lambda: native.integrated_loudness_native(x, SR), iters),
+                        "plain_ms": host_ms(lambda: integrated_loudness(x, SR), iters)}
+    rng = np.random.default_rng(19)
+    audio = rng.uniform(-1.2, 1.2, SR).astype(np.float32)
+    pcm = rng.integers(-32768, 32768, SR).astype(np.int16)
+    ring, ring_plain = native.RingBuffer(SR), native.RingBufferPlain(SR)
+    pushed = [r.push(audio) for r in (ring, ring_plain)]
+    popped = [r.pop(SR // 3) for r in (ring, ring_plain)]
+    same = {"f32_to_pcm16": np.array_equal(native.f32_to_pcm16(audio),
+                                           native.f32_to_pcm16_plain(audio)),
+            "pcm16_to_f32": np.array_equal(native.pcm16_to_f32(pcm),
+                                           native.pcm16_to_f32_plain(pcm)),
+            "resample_linear": np.array_equal(native.resample_linear(audio, 44100),
+                                              native.resample_linear_plain(audio, 44100)),
+            "ring": pushed[0] == pushed[1] and np.array_equal(*popped)
+            and len(ring) == len(ring_plain) and ring.space() == ring_plain.space()}
+    emit("host_library", library=os.path.relpath(path, ROOT),
+         **({"build_s": load_s} if built else {"load_s": load_s, "note": "already built"}),
+         meter=meters, equal_to_numpy=same)
+    if not all(same.values()):
+        raise AssertionError(f"the host library against its numpy versions: {same}")
+    return meters
 
 
 def check_slice() -> dict:
@@ -1592,7 +1699,7 @@ def infer_agreement(got: dict, want: dict) -> dict:
             "target_entries": piece_agreement(got["pieces"], want["pieces"])}
 
 
-def check_infer() -> dict:
+def check_infer() -> tuple[dict, dict]:
     import torch
 
     calls, enroll = infer_inputs()
@@ -1659,8 +1766,20 @@ def check_infer() -> dict:
                              f"check_dwconv holds {sorted(APOLLO_DW_SHAPES)}")
     name_a = "a: overlapped dialogue 20 s"
     audio_a, kw_a = calls[name_a]
-    profile_call(lambda: td.infer(audio_a, enroll, **kw_a), "TargetDiarization.infer, call a",
-                 top=12, spans=True)
+    reset_launches()
+    trace = profile_call(lambda: td.infer(audio_a, enroll, **kw_a),
+                         "TargetDiarization.infer, call a", top=12, spans=True)
+    profiled = read_launches()
+    traced = trace_launches(trace["device"])
+    emit("device_profile", call=name_a, launches=profiled, trace_launches=traced,
+         fused_separate_ranges=trace["ranges"]["fused/separate"])
+    # this slice's card path: infer (a) under device_profile runs FFConvM,
+    # gated FLASH and dwconv, and its trace holds each launch and the span
+    path_kernels = ("ffconvm", "flash_gated", "dwconv")
+    if traced != profiled or not all(profiled[k] > 0 for k in path_kernels) \
+            or trace["ranges"]["fused/separate"] < 1:
+        raise AssertionError(f"{name_a} under device_profile: counted {profiled}, in the trace "
+                             f"{traced}, fused/separate ranges {trace['ranges']['fused/separate']}")
     # the clips each call separated, through the bf16 card path's own branch
     sep_bf16 = {name: separation_outputs(td, clips) for name, clips in separated.items()}
 
@@ -1711,7 +1830,7 @@ def check_infer() -> dict:
                 and min_at_least(pieces["min_si_sdr_db"], 10.0)):
             raise AssertionError(f"{name}: bf16 card path vs float32 plain path: {bf16}")
     torch.cuda.synchronize()
-    return totals
+    return totals, profiled
 
 
 # ---------------- the slice: TargetDiarizationStream.infer_stream ----------------
@@ -4096,15 +4215,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     env = environment()
     build_report()
+    check_host()
     rows = {"ffconvm": check_ffconvm(), "flash_gated": check_flash(),
             "dwconv": check_dwconv(), "flash_group": check_flash_group(),
             "flash_range": check_flash_range()}
     path_launches = {"separate_speaker": check_slice(), "ASRProcessor": check_asr(),
-                     "FusedFrontend": check_frontend(),
-                     "TargetDiarization.infer": check_infer(),
-                     "TargetDiarizationStream.infer_stream": check_stream(),
-                     "surface": check_surface(), "engines": check_engines(),
-                     "zoo": check_zoo()}
+                     "FusedFrontend": check_frontend()}
+    path_launches["TargetDiarization.infer"], path_launches["infer a under device_profile"] = \
+        check_infer()
+    path_launches |= {"TargetDiarizationStream.infer_stream": check_stream(),
+                      "surface": check_surface(), "engines": check_engines(),
+                      "zoo": check_zoo()}
     path_launches["train"], rows["dwconv_dx"] = check_train()
     path_launches["recipes"] = check_recipes()
     path_launches["recipes_plain"] = check_recipes_plain()

@@ -8,10 +8,11 @@
 
 Each builds the server's model (`serve/server.py::build_model`) on the card,
 or on the CPU with `--device cpu`. `infer` prints the offline result as
-JSON; `stream` feeds a WAV file in chunks of `--chunk` seconds (sleeping
+JSON; `stream` feeds an audio file in chunks of `--chunk` seconds (sleeping
 chunk x pace between them) and prints one JSON line per segment; `serve`
 runs the REST and WebSocket API (it needs aiohttp; the others do not). The
-JAX package's `bench` subcommand has no counterpart here.
+JAX package's `bench` subcommand has no counterpart here. AUDIO and
+--target are PCM WAV or, where ffmpeg is on the PATH, any format it decodes.
 """
 
 from __future__ import annotations

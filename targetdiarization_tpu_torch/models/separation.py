@@ -22,13 +22,13 @@ from ..ops.kernels import prepare_kernels
 from ..ops.kernels.dwconv import prepare_taps
 from ..ops.kernels.ffconvm import TAPS, ffconvm, prepare_ffconvm, scale_norm
 from ..ops.kernels.flash import flash_gated
-from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample_poly_np
 from ..parallel.mesh import pjit_forward, replicated
 from ..runtime import microbatch
 from ..runtime.buckets import BucketLadder
 from ..runtime.precision import promote_after, resolve_compute_dtype
 from ..runtime.trace import trace
+from ..utils.native import integrated_loudness_native
 
 
 # ---------------- small pieces ----------------
@@ -501,7 +501,7 @@ class SeparationEngine:
 
     def _order_and_fit(self, streams: np.ndarray, sr: int, t_orig: int) -> np.ndarray:
         """Loudest stream first, back to the input rate and length."""
-        louds = [integrated_loudness(s, self.sample_rate) for s in streams]
+        louds = [integrated_loudness_native(s, self.sample_rate) for s in streams]
         streams = streams[np.argsort(louds)[::-1]]
         if sr != self.sample_rate:
             streams = np.stack([resample_poly_np(s, sr, self.sample_rate) for s in streams])

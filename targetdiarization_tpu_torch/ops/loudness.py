@@ -1,11 +1,11 @@
 """ITU-R BS.1770-4 gated integrated loudness (LUFS), on the host and on
 the device.
 
-Host: counterpart of targetdiarization_tpu/utils/native.py::
-integrated_loudness_native (native/tdaudio.cpp): the K-weighting prefilter
-as two float64 biquads (high shelf, then the RLB high-pass), 400 ms blocks
-at 75 % overlap, an absolute gate at -70 LKFS and a relative gate 10 LU
-under the absolute-gated mean (`integrated_loudness`).
+Host: `integrated_loudness`, the plain numpy version of the host
+library's meter (utils/native.py::integrated_loudness_native, which the
+callers run): the K-weighting prefilter as two float64 biquads (high
+shelf, then the RLB high-pass), 400 ms blocks at 75 % overlap, an absolute
+gate at -70 LKFS and a relative gate 10 LU under the absolute-gated mean.
 
 Device: counterpart of targetdiarization_tpu/ops/loudness.py. `k_weight`
 is one rfft, times the filters' exact response (float64 on the host, cast

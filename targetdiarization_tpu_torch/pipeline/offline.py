@@ -458,7 +458,9 @@ class TargetDiarization:
               sampling_rate: int = 16000, is_single: bool = False,
               output_target_audio: bool = True):
         """(target_spk, results, target_audio) of one recording; an ndarray
-        is taken at `sampling_rate`, a path or `io.BytesIO` is read as WAV."""
+        is taken at `sampling_rate`, a path or URL is read by
+        `AudioProcessor.read_audio` (PCM WAV, or any format through ffmpeg)
+        and an `io.BytesIO` as PCM WAV."""
         if isinstance(wav_file, (str, io.BytesIO)):
             audio_data, sampling_rate = self.ap.read_audio(wav_file)
         else:

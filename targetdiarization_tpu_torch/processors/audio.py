@@ -31,11 +31,12 @@ from ..models.enhancement import PRIOR_STD, EnhancerEngine
 from ..models.restoration import RestorationEngine
 from ..models.separation import SeparationEngine
 from ..ops import audio as A
-from ..ops.loudness import integrated_loudness
 from ..ops.resample import resample, resample_poly_np
 from ..ops.stft import istft, stft
 from ..runtime.trace import trace
 from ..utils import audio_io
+from ..utils.native import integrated_loudness_native
+
 
 def _checkpoint(path: str, what: str) -> str:
     if not os.path.isdir(path):
@@ -81,9 +82,10 @@ class AudioProcessor:
         return isinstance(item, str) and item.lower().startswith(("http://", "https://"))
 
     def read_audio(self, wav_file, sampling_rate: int | None = None):
-        """(audio, rate) of a WAV path, URL, bytes or `io.BytesIO`; an ndarray
-        passes through (integer PCM scaled to [-1, 1]) at `sampling_rate`
-        or 16 kHz. A URL is fetched to a temporary file, read and deleted."""
+        """(audio, rate) of a path or URL (PCM WAV, or any format ffmpeg
+        decodes), or of PCM WAV bytes or `io.BytesIO`; an ndarray passes
+        through (integer PCM scaled to [-1, 1]) at `sampling_rate` or
+        16 kHz. A URL is fetched to a temporary file, read and deleted."""
         if isinstance(wav_file, np.ndarray):
             return self.int16_to_float32(wav_file), sampling_rate or 16000
         if self.is_url(wav_file):
@@ -179,11 +181,12 @@ class AudioProcessor:
     # ---------------- level ----------------
 
     def meter_loudness(self, audio_data: np.ndarray, sampling_rate: int) -> float:
-        """Integrated loudness (BS.1770, LUFS); -inf below one 400 ms block."""
+        """Integrated loudness (BS.1770, LUFS) by the host library's meter
+        (`utils/native.py`); -inf below one 400 ms block."""
         a = np.asarray(audio_data, np.float32)
         if a.size < int(0.4 * sampling_rate):
             return float("-inf")
-        return integrated_loudness(a, sampling_rate)
+        return integrated_loudness_native(a, sampling_rate)
 
     def audio_loudness_control(self, audio_data: np.ndarray, sampling_rate: int,
                                target_loudness: float = -23.0) -> np.ndarray:
@@ -192,7 +195,7 @@ class AudioProcessor:
         a = np.asarray(audio_data, np.float32)
         if a.size < int(0.4 * sampling_rate):
             return a
-        measured = integrated_loudness(a, sampling_rate)
+        measured = integrated_loudness_native(a, sampling_rate)
         if not np.isfinite(measured):
             return a
         return a * np.float32(10.0 ** ((target_loudness - measured) / 20.0))

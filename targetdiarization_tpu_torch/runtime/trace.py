@@ -10,13 +10,18 @@ the card groups its kernels by stage. On the card a span's host time is
 not its device time: the spans return before the work they queued ends,
 and the profiler gives both. `HOOKS` holds callables `hook(full_name,
 entering)` run at each span's start and end, for counters that a caller
-attributes to stages. The JAX package's `device_profile` has no
-counterpart: `torch.profiler` is that.
+attributes to stages. `device_profile(log_dir)` is the profiler scope,
+the counterpart of the JAX package's: a `torch.profiler.profile` of the
+host, and of the card where there is one, whose Chrome trace JSON it
+writes into `log_dir` on exit; the spans' ranges are in it beside the
+kernels.
 """
 
 from __future__ import annotations
 
 import os
+import socket
+import tempfile
 import threading
 import time
 from collections import defaultdict
@@ -94,3 +99,27 @@ def reset():
 
 def enabled() -> bool:
     return os.environ.get("TD_TRACE", "0") == "1"
+
+
+@contextmanager
+def device_profile(log_dir: str | None = None):
+    """Profile the block with `torch.profiler` (CPU activity, and CUDA
+    activity where a card is available) and write its Chrome trace JSON
+    into `log_dir` on exit, also where the block raised, as
+    `<host>.<pid>.<ns>.pt.trace.json` (view it in Perfetto or
+    chrome://tracing). Yields `log_dir`, by default `torch-trace` under the
+    temporary directory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch-trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield log_dir
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))

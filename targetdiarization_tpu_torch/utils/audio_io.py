@@ -1,13 +1,16 @@
-"""Host-side WAV reading and writing.
+"""Host-side audio reading and writing.
 
-The port's copy of the PCM WAV branch of targetdiarization_tpu/utils/
-audio_io.py: 8-, 16-, 24- and 32-bit integer PCM from a path, bytes or a
-binary file object (`io.BytesIO`), as float32 in [-1, 1], (T,) for mono
-and (C, T) for several channels; and its writers: 16-bit PCM WAV as the
-JAX package writes it, other formats through ffmpeg where it is on the
-PATH, and the int16 byte converters of the WebSocket protocol.
-Compressed formats are not read here, and URLs are fetched by
-`AudioProcessor.download_audio`.
+The port's copy of targetdiarization_tpu/utils/audio_io.py. Reading: 8-,
+16-, 24- and 32-bit integer PCM WAV from a path, bytes or a binary file
+object (`io.BytesIO`), as float32 in [-1, 1], (T,) for mono and (C, T)
+for several channels; a file at a path that is not a PCM WAV (mp3, m4a,
+flac, float WAV, ...) is decoded by ffmpeg, looked up on the PATH at each
+call, to float32 at the rate and channel count that ffmpeg reports (the
+JAX package's command line and parse). A buffer is read as PCM WAV only,
+as in the JAX package. Writing: 16-bit PCM WAV as the JAX package writes
+it, other formats through ffmpeg where it is on the PATH, and the int16
+byte converters of the WebSocket protocol. URLs are fetched by
+`AudioProcessor.download_audio` and then read from their path.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from __future__ import annotations
 import io
 import os
 import shutil
+import struct
 import subprocess
+import wave
 
 import numpy as np
 
@@ -45,8 +50,6 @@ def read_wav(source) -> tuple[np.ndarray, int]:
     """(audio, sample rate) of a PCM WAV given as a path, bytes, an
     `io.BytesIO` (all of its buffer) or another binary file object (from
     its current position)."""
-    import wave
-
     if isinstance(source, io.BytesIO):  # the whole buffer, wherever its position
         source = source.getvalue()
     if isinstance(source, (bytes, bytearray)):
@@ -57,9 +60,45 @@ def read_wav(source) -> tuple[np.ndarray, int]:
     return _pcm_to_float32(raw, width, nch), sr
 
 
+def _read_via_ffmpeg(path: str) -> tuple[np.ndarray, int]:
+    """(audio, rate) of any format ffmpeg decodes, as float32 PCM: the rate
+    and the channels from the "Audio:" line of its stderr (16000 and mono
+    where it names none), several channels as (C, T)."""
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise RuntimeError(f"cannot decode {path!r}: not a PCM WAV and ffmpeg is unavailable")
+    proc = subprocess.run([ffmpeg, "-i", path, "-f", "f32le", "-acodec", "pcm_f32le", "-"],
+                          capture_output=True, check=True)
+    sr, nch = 16000, 1
+    for line in proc.stderr.decode("utf-8", "ignore").splitlines():
+        if "Audio:" in line:
+            for tok in line.split(","):
+                tok = tok.strip()
+                if tok.endswith("Hz"):
+                    sr = int(tok.split()[0])
+                elif tok == "mono":
+                    nch = 1
+                elif tok == "stereo":
+                    nch = 2
+                elif "channels" in tok:
+                    nch = int(tok.split()[0])
+    x = np.frombuffer(proc.stdout, dtype="<f4").astype(np.float32)
+    if nch > 1:
+        x = x.reshape(-1, nch).T
+    return x, sr
+
+
 def read_audio(source, sample_rate: int | None = None) -> tuple[np.ndarray, int]:
-    """`read_wav`, resampled on the host to `sample_rate` when it is given."""
-    audio, sr = read_wav(source)
+    """`read_wav`; a path that is not a PCM WAV goes through ffmpeg. The
+    audio is resampled on the host to `sample_rate` when it is given. A
+    buffer or file object that is not a PCM WAV raises ValueError."""
+    try:
+        audio, sr = read_wav(source)
+    except (wave.Error, EOFError, struct.error) as e:
+        if isinstance(source, (bytes, bytearray)) or hasattr(source, "read"):
+            raise ValueError(f"not a PCM WAV buffer ({e}): compressed audio is decoded "
+                             "from a path only, through ffmpeg") from e
+        audio, sr = _read_via_ffmpeg(os.fspath(source))
     if sample_rate is not None and sample_rate != sr:
         from ..ops.resample import resample_poly_np
 
@@ -71,8 +110,6 @@ def write_wav(path, audio: np.ndarray, sample_rate: int) -> None:
     """Float audio in [-1, 1], (T,) or (C, T), as 16-bit PCM WAV: scaled by
     32768, clipped to the int16 range and truncated toward zero, the
     channels of a (C, T) input interleaved (the JAX package's writer)."""
-    import wave
-
     audio = np.asarray(audio)
     nch = audio.shape[0] if audio.ndim == 2 else 1
     interleaved = audio.T if audio.ndim == 2 else audio

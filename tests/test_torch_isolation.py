@@ -16,7 +16,8 @@ size, and the bootstrap recipes, all fourteen), with optax blocked too, and
 (`runtime/port_rules.py`, `runtime/onnx_io.py`, chip_smoke.py's port_rules
 phase at small sizes), and data parallelism (`parallel/`, the trainer on a
 mesh, `tools/dryrun_multichip.py` through chip_smoke.py's mesh phase at a
-small size), with optax blocked too.
+small size), with optax blocked too, and the host library
+(`utils/native.py`), the ffmpeg decoder and `device_profile`.
 A checkpoint path that does not exist must raise, and the ported loudness
 must agree with the JAX package's host meter.
 """
@@ -630,6 +631,80 @@ def test_mesh_runs_without_jax_or_optax():
     against one slot, the separation engine, the sharded analyze and ASR,
     each sharded run's launches as predicted), with optax blocked too."""
     proc = _run_blocked(_BLOCKED_MESH, extra=("aiohttp", "optax"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED_OK" in proc.stdout
+
+
+_BLOCKED_HOST = textwrap.dedent("""
+    import glob, json, os, tempfile
+    import chip_smoke
+    from targetdiarization_tpu_torch.ops.loudness import integrated_loudness
+    from targetdiarization_tpu_torch.processors.audio import AudioProcessor
+    from targetdiarization_tpu_torch.runtime.trace import device_profile, trace
+    from targetdiarization_tpu_torch.utils import native
+    # the host library, built here from the port's own source
+    assert native.has_native()
+    assert native.SOURCE.endswith(os.path.join("csrc", "host", "tdaudio.cpp"))
+    x = (0.1 * np.random.default_rng(0).standard_normal(32000)).astype(np.float32)
+    assert abs(native.integrated_loudness_native(x, 16000) - integrated_loudness(x, 16000)) <= 1e-9
+    ap = AudioProcessor(device="cpu")
+    assert ap.meter_loudness(x, 16000) == native.integrated_loudness_native(x, 16000)
+    pcm = native.f32_to_pcm16(x)
+    assert np.array_equal(native.pcm16_to_f32(pcm), native.pcm16_to_f32_plain(pcm))
+    assert np.array_equal(native.resample_linear(x, 7), native.resample_linear_plain(x, 7))
+    ring = native.RingBuffer(8)
+    assert ring.push(x) == 8 and ring.space() == 0 and np.array_equal(ring.pop(8), x[:8])
+    chip_smoke.check_host()  # the card's host_library phase
+    # a compressed file through a stub ffmpeg on the PATH
+    root = tempfile.mkdtemp()
+    with open(os.path.join(root, "s.f32"), "wb") as f:
+        f.write(x[:1000].astype("<f4").tobytes())
+    with open(os.path.join(root, "ffmpeg"), "w") as f:
+        f.write(f"#!/bin/sh\\ncat '{root}/s.f32'\\n"
+                "echo '  Stream #0:0: Audio: mp3, 22050 Hz, mono, fltp' >&2\\n")
+    os.chmod(os.path.join(root, "ffmpeg"), 0o755)
+    os.environ["PATH"] = root + os.pathsep + os.environ["PATH"]
+    path = os.path.join(root, "in.mp3")
+    with open(path, "wb") as f:
+        f.write(b"ID3" + bytes(100))
+    audio, sr = ap.read_audio(path)
+    assert sr == 22050 and np.array_equal(audio, x[:1000])
+    # torch.profiler imports torch._inductor, whose trace rules look up
+    # optional libraries (sklearn among them) by find_spec without importing
+    # them: where one is absent that returns None, here the blocker raises.
+    # So torch._inductor is imported unblocked; the leak check below still
+    # holds that nothing blocked was imported
+    blocker = next(f for f in sys.meta_path if type(f).__name__ == "Block")
+    sys.meta_path.remove(blocker)
+    import torch._inductor
+    sys.meta_path.insert(0, blocker)
+    # device_profile, and chip_smoke.py's profile line read back from it
+    conv = torch.nn.Conv1d(4, 4, 3)
+    with device_profile(os.path.join(root, "trace")) as log_dir:
+        with trace("fused/separate"):
+            conv(torch.ones(1, 4, 16))
+    (p,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(p) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    assert names == ["fused/separate"], names
+    torch.cuda.synchronize = lambda *a, **k: None
+    def forward():
+        with trace("fused/separate"):
+            conv(torch.ones(1, 4, 16))
+    got = chip_smoke.profile_call(forward, "CPU dry run", spans=True)
+    assert got["ranges"]["fused/separate"] == 1
+    assert chip_smoke.trace_launches(got["device"]) == dict.fromkeys(
+        ("ffconvm", "flash_gated", "flash_group", "dwconv"), 0)
+""")
+
+
+def test_host_library_decoder_and_profile_run_without_jax():
+    """`utils/native.py` (built here with g++ from the port's source, and
+    chip_smoke.py's host_library phase), a compressed file through
+    `AudioProcessor.read_audio` and a stub ffmpeg, and `device_profile`
+    with chip_smoke.py's reading of its trace, with jax, flax, sklearn,
+    aiohttp and the JAX package blocked."""
+    proc = _run_blocked(_BLOCKED_HOST, extra=("aiohttp",))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_OK" in proc.stdout
 
